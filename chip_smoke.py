@@ -458,7 +458,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(f"card: {smi.stdout.strip()}")
+    log(smi.stdout.strip())
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref

@@ -3,19 +3,18 @@ kernels, CPU tensors to the plain PyTorch versions in ``kernels.ref``.
 
 Port of ``repro/kernels/ops.py`` for the four kernels of the serving
 path. The op and path names of every ``DispatchRecord`` are the
-reference's. Records are written on every call (the port runs eagerly,
-where the reference recorded once per traced program). A CUDA tensor
-never falls back to the plain version: its wrapper launches the kernel
-or raises.
+reference's. The reference records once per traced program; the port
+runs eagerly, so it keeps each distinct record once (a dict used as an
+ordered set). The per-call count is the wrapper's launch counter. A CUDA
+tensor never falls back to the plain version: its wrapper launches the
+kernel or raises.
 """
 from __future__ import annotations
 
-import collections
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch import obs
 from repro_torch.kernels import kv_decode as _kv_decode
 from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import packed_matmul as _packed_matmul
@@ -24,8 +23,7 @@ from repro_torch.kernels import take as _take
 
 
 class DispatchRecord(NamedTuple):
-    """One dispatch (or fallback) decision. A named tuple: records are
-    written on every call of the serving path, so they must be cheap."""
+    """One dispatch (or fallback) decision."""
 
     op: str                               # packed_matmul | pack | ...
     path: str                             # fused | encode | take | ...
@@ -35,35 +33,24 @@ class DispatchRecord(NamedTuple):
     reason: str = ""                      # fallbacks: why it fell off
 
 
-DISPATCH_RECORDS: collections.deque = collections.deque(maxlen=4096)
-FALLBACK_RECORDS: collections.deque = collections.deque(maxlen=4096)
+# distinct records in first-seen order; ``.clear()`` starts a new window
+DISPATCH_RECORDS: Dict[DispatchRecord, None] = {}
+FALLBACK_RECORDS: Dict[DispatchRecord, None] = {}
 
 
 def record_fallback(op: str, spec: str = "", shape: Tuple[int, ...] = (),
                     bits: int = 0, reason: str = "") -> None:
-    """A packed operand leaving the fused path."""
-    FALLBACK_RECORDS.append(DispatchRecord(
+    """A packed operand leaving the fused path (CPU tensors only)."""
+    FALLBACK_RECORDS[DispatchRecord(
         op=op, path="fallback", shape=tuple(int(s) for s in shape),
-        bits=int(bits), spec=spec, reason=reason))
-    obs.REGISTRY.counter(
-        "kernel_fallback_total",
-        "Packed operands that fell off the fused path.",
-    ).inc(1, op=op, reason=reason or "unknown")
+        bits=int(bits), spec=spec, reason=reason)] = None
 
 
-def record_dispatch(op: str, path: str, packed_bytes: int = 0,
-                    shape: Tuple[int, ...] = (), bits: int = 0) -> None:
-    """One record and one count per dispatch, labeled by path; with the
-    packed operand's bytes where it has one."""
-    DISPATCH_RECORDS.append(DispatchRecord(op, path, tuple(shape), bits))
-    obs.REGISTRY.counter(
-        "kernel_dispatch_total", "Kernel dispatch decisions by op and path.",
-    ).inc(1, op=op, path=path)
-    if packed_bytes:
-        obs.REGISTRY.counter(
-            "kernel_dispatch_packed_bytes",
-            "Packed weight-read bytes per dispatch.",
-        ).inc(int(packed_bytes), op=op, path=path)
+def record_dispatch(op: str, path: str, shape: Tuple[int, ...] = (),
+                    bits: int = 0) -> None:
+    """Keep the record of a dispatch, once per distinct (op, path, shape,
+    bits)."""
+    DISPATCH_RECORDS[DispatchRecord(op, path, tuple(shape), bits)] = None
 
 
 def pack(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -91,8 +78,8 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
                   transpose: bool = False) -> torch.Tensor:
     """Fused unpack + matmul, the packed-weight hot path. On the card the
     output is in x's dtype; the plain version returns float32."""
-    record_dispatch("packed_matmul", "fused", w_packed.numel() * 4,
-                    shape=tuple(w_packed.shape), bits=bits)
+    record_dispatch("packed_matmul", "fused", shape=tuple(w_packed.shape),
+                    bits=bits)
     if x.is_cuda:
         return _packed_matmul.packed_matmul(x.contiguous(), w_packed, bits,
                                             n, transpose=transpose)
@@ -101,9 +88,8 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
 
 def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,
               kv_len: torch.Tensor, bits: int, d: int) -> torch.Tensor:
-    record_dispatch("kv_decode", "kv_decode",
-                    (k_packed.numel() + v_packed.numel()) * 4,
-                    shape=tuple(k_packed.shape), bits=bits)
+    record_dispatch("kv_decode", "kv_decode", shape=tuple(k_packed.shape),
+                    bits=bits)
     if q.is_cuda:
         return _kv_decode.kv_decode(q.contiguous(), k_packed, v_packed,
                                     kv_len.to(torch.int32).contiguous(),

@@ -10,8 +10,12 @@ Port of ``repro.models.layers``. Weights arrive as tensors or
     reaches device memory.
   * ``embed`` with a packed table gathers packed rows and decodes only
     those (``PackedTensor.take`` -> ``kernels.ops.take_rows``).
-  * Everything else (norm scales, int-kind or >= 3-D packed leaves,
-    other specs) decodes through ``unpack_maybe``, the materialized path.
+  * A packed weight that ``linear``, ``unembed`` or ``embed`` cannot hand
+    to a kernel (int-kind or >= 3-D leaves, other specs) decodes in full
+    through ``unpack_maybe`` on the CPU, where that is the plain version
+    of the kernel. On the card it raises: no kernel computes it.
+  * Packed norm scales decode through ``unpack_maybe``, as in the
+    reference (a materialized decode, no kernel).
 
 The training pieces (custom gradients, ``STWeight``) come with ROADMAP
 A13.
@@ -35,7 +39,6 @@ def unpack_maybe(w, dtype=None):
     through, cast to ``dtype`` when one is given."""
     if is_packed(w):
         kops.record_dispatch("unpack_maybe", "materialized",
-                             w.data.numel() * 4,
                              shape=w.logical_shape, bits=w.bits)
         x = w.unpack()
         return x.to(dtype) if dtype is not None else x
@@ -71,11 +74,20 @@ def _warn_unfused_spec(spec: str) -> None:
         "unpack path", stacklevel=3)
 
 
-def _record_unfused(op: str, spec: str, w, reason: str) -> None:
+def _record_unfused(op: str, spec: str, w, x: torch.Tensor) -> None:
+    """A packed weight off the kernel path: recorded (and warned about,
+    for an odd spec) on the CPU, refused on the card."""
     nspec = _normalize_spec(spec)
+    reason = "unrecognized_spec" if _fusable(w) else "not_fusable"
+    if x.is_cuda:
+        raise NotImplementedError(
+            f"{op}: packed {w.kind} weight {tuple(w.logical_shape)} at "
+            f"{w.bits} bits with spec {nspec!r} has no kernel path on the "
+            f"card ({reason})")
     kops.record_fallback(op, spec=nspec, shape=w.logical_shape,
                          bits=w.bits, reason=reason)
-    _warn_unfused_spec(nspec)
+    if reason == "unrecognized_spec":
+        _warn_unfused_spec(nspec)
 
 
 def _packed_matmul(x: torch.Tensor, w: PackedTensor,
@@ -91,10 +103,10 @@ def _packed_matmul(x: torch.Tensor, w: PackedTensor,
 
 def linear(x: torch.Tensor, w, spec: str = "...d,df->...f") -> torch.Tensor:
     """einsum against a (possibly packed) weight."""
-    if _fusable(w):
-        if _plain_matmul_spec(spec):
+    if is_packed(w):
+        if _fusable(w) and _plain_matmul_spec(spec):
             return _packed_matmul(x, w, transpose=False)
-        _record_unfused("linear", spec, w, "unrecognized_spec")
+        _record_unfused("linear", spec, w, x)
     return torch.einsum(spec, x, unpack_maybe(w, x.dtype))
 
 
@@ -135,8 +147,10 @@ def mlp(x, w_in, w_gate, w_out, gated: bool) -> torch.Tensor:
 def embed(tokens: torch.Tensor, table) -> torch.Tensor:
     """Token embedding; a packed 2-D table gathers packed rows and
     decodes only those."""
-    if is_packed(table) and len(table.logical_shape) == 2:
-        return table.take(tokens)
+    if is_packed(table):
+        if len(table.logical_shape) == 2:
+            return table.take(tokens)
+        _record_unfused("embed", "", table, tokens)
     return unpack_maybe(table)[tokens.long()]
 
 
@@ -144,12 +158,12 @@ def unembed(x: torch.Tensor, table_or_head, tied: bool) -> torch.Tensor:
     """Vocabulary projection: a tied (V, D) table packed along D takes
     the kernel's transpose orientation, an untied (D, V) head the
     normal one."""
-    if _fusable(table_or_head):
-        return _packed_matmul(x, table_or_head, transpose=tied)
-    w = unpack_maybe(table_or_head, x.dtype)
-    if tied:
-        return torch.einsum("...d,vd->...v", x, w)
-    return torch.einsum("...d,dv->...v", x, w)
+    spec = "...d,vd->...v" if tied else "...d,dv->...v"
+    if is_packed(table_or_head):
+        if _fusable(table_or_head):
+            return _packed_matmul(x, table_or_head, transpose=tied)
+        _record_unfused("unembed", spec, table_or_head, x)
+    return torch.einsum(spec, x, unpack_maybe(table_or_head, x.dtype))
 
 
 def init_dense(gen: torch.Generator, shape, scale=None,

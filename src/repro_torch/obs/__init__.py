@@ -9,7 +9,6 @@ from __future__ import annotations
 
 from repro_torch.obs.registry import (  # noqa: F401
     Counter,
-    Gauge,
     Histogram,
     MetricsRegistry,
 )

@@ -1,4 +1,4 @@
-"""Counters, gauges and histograms with labeled series.
+"""Counters and histograms with labeled series.
 
 A small copy of ``repro.obs.registry`` (the port imports nothing of the
 reference package): Prometheus semantics and idempotent registration;
@@ -32,33 +32,16 @@ class _Metric:
 class Counter(_Metric):
     kind = "counter"
 
-    def __init__(self, name: str, help: str, lock: threading.RLock):
-        super().__init__(name, help, lock)
-        self._keys: Dict[Tuple, Tuple[Tuple[str, str], ...]] = {}
-
     def inc(self, value: float = 1.0, **labels: Any) -> None:
         if value < 0:
             raise ValueError(f"counter {self.name} cannot decrease")
-        # counters sit on the per-call dispatch path: remember the sorted
-        # key of each label set as given
-        given = tuple(labels.items())
-        key = self._keys.get(given)
-        if key is None:
-            key = self._keys[given] = _label_key(labels)
+        key = _label_key(labels)
         with self._lock:
             self._series[key] = self._series.get(key, 0) + value
 
     def value(self, **labels: Any) -> float:
         with self._lock:
             return self._series.get(_label_key(labels), 0)
-
-
-class Gauge(_Metric):
-    kind = "gauge"
-
-    def set(self, value: float, **labels: Any) -> None:
-        with self._lock:
-            self._series[_label_key(labels)] = value
 
 
 class Histogram(_Metric):
@@ -102,9 +85,6 @@ class MetricsRegistry:
 
     def counter(self, name: str, help: str = "") -> Counter:
         return self._register(Counter, name, help)
-
-    def gauge(self, name: str, help: str = "") -> Gauge:
-        return self._register(Gauge, name, help)
 
     def histogram(self, name: str, help: str = "",
                   buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:

@@ -31,10 +31,13 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.compress import repack, uniform_plan
-from repro_torch.core.occupancy import H100, ChipConfig, decode_residency
+from repro_torch.core.occupancy import H100, decode_residency
 from repro_torch.core.tensor_store import tree_bytes, tree_to, weight_pass_bytes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import LM
+
+BOS_TOKEN = 0          # fed when a request has no prompt
+MAX_RESULTS = 65536    # finished outputs kept (FIFO)
 
 
 @dataclasses.dataclass
@@ -54,16 +57,12 @@ class ServeEngine:
     cfg: ModelConfig
     max_seq_len: int = 256
     max_slots: Optional[int] = None
-    chip: ChipConfig = H100
     greedy: bool = True
-    bos_token: int = 0             # fed when a request has no prompt
-    max_results: int = 65536       # finished-output retention (FIFO)
     pack_weights: bool = False     # pack params at the planned width
     prefill_chunk: int = 16        # prompt tokens ingested per prefill call
     plan: Optional[Any] = None     # a per-leaf CompressionPlan
     paged: bool = False
     tracer: Optional[obs.Tracer] = None
-    metrics_interval: int = 0
     params: Optional[Dict] = None  # serve these instead of LM.init's
     device: Optional[Union[str, torch.device]] = None
 
@@ -98,7 +97,7 @@ class ServeEngine:
         self.residency = decode_residency(
             weight_bytes=weight_bytes,
             kv_bytes_per_token=self.cfg.kv_bytes_per_token(),
-            seq_len=self.max_seq_len, chip=self.chip)
+            seq_len=self.max_seq_len, chip=H100)
         self.n_slots = self.max_slots or max(
             min(self.residency.max_sequences, 64), 1)
         self.state = self.lm.init_decode_state(self.n_slots,
@@ -176,7 +175,7 @@ class ServeEngine:
             self._reset_slot(slot)
             # an empty prompt still needs one deterministic first token
             self._pending_prefill[req.rid] = (list(req.prompt)
-                                              or [self.bos_token])
+                                              or [BOS_TOKEN])
         if admitted:
             self._ingest_prompts()
 
@@ -264,15 +263,13 @@ class ServeEngine:
                 self._free.append(req.slot)
                 self._pending_prefill.pop(rid, None)
             self._finished_total += len(finished)
-            while len(self._results) > self.max_results:
+            while len(self._results) > MAX_RESULTS:
                 self._results.pop(next(iter(self._results)))
             self._admit()
             self.ticks += 1
             self.tokens_out += emitted
             sp["emitted"] = emitted
             sp["finished"] = len(finished)
-        if self.metrics_interval and self.ticks % self.metrics_interval == 0:
-            self._emit_metrics()
         return emitted
 
     # -- observability --------------------------------------------------------
@@ -310,20 +307,11 @@ class ServeEngine:
                 self._kv_rows_appended * self._kv_bytes_per_row,
         }
 
-    def _emit_metrics(self) -> Dict[str, Any]:
-        snap = self.metrics_snapshot()
-        self.tracer.event("serve.metrics", **snap)
-        for key, val in snap.items():
-            if isinstance(val, (int, float)) and not isinstance(val, bool):
-                obs.REGISTRY.gauge(f"serve_{key}",
-                                   f"ServeEngine {key} (live mirror)."
-                                   ).set(float(val))
-        return snap
-
     def run_until_drained(self, max_ticks: int = 10000) -> Dict[str, Any]:
         t0 = time.perf_counter()
         while (self._queue or self._active) and self.ticks < max_ticks:
             self.step()
-        stats: Dict[str, Any] = self._emit_metrics()
+        stats: Dict[str, Any] = self.metrics_snapshot()
+        self.tracer.event("serve.metrics", **stats)
         stats["wall_s"] = time.perf_counter() - t0
         return stats

@@ -11,6 +11,8 @@ round one bf16 ulp apart from the f32 result.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -191,6 +193,46 @@ def test_wrappers_refuse_cpu_tensors():
     assert ops.launch_counts() == before
 
 
+def _unfused_case(case: str, device):
+    """A packed weight that no kernel takes, and the layer call on it:
+    an odd einsum spec, an int-kind head, a 3-D embedding table."""
+    from repro_torch.core.tensor_store import pack_tensor
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 32, generator=gen)
+    if case == "linear_spec":
+        w = pack_tensor(torch.randn(16, 32, generator=gen), 16)
+        want = torch.einsum("...d,fd->...f", x, w.unpack())
+        return (lambda: layers.linear(x.to(device), w.to(device),
+                                      "...d,fd->...f")), want
+    if case == "unembed_int":
+        w = pack_tensor(torch.randint(-8, 8, (32, 16), generator=gen,
+                                      dtype=torch.int32), 8)
+        want = x @ w.unpack().float()
+        return (lambda: layers.unembed(x.to(device), w.to(device),
+                                       tied=False)), want
+    table = pack_tensor(torch.randn(3, 5, 32, generator=gen), 16)
+    tok = torch.tensor([2, 0, 2])
+    return (lambda: layers.embed(tok.to(device), table.to(device))), \
+        table.unpack()[tok]
+
+
+UNFUSED = ("linear_spec", "unembed_int", "embed_3d")
+
+
+@pytest.mark.parametrize("case", UNFUSED)
+def test_unfused_packed_weight_materializes_on_cpu(case):
+    """On the CPU a packed weight that no kernel takes decodes in full
+    (the plain version) and leaves a fallback record."""
+    call, want = _unfused_case(case, "cpu")
+    ops.FALLBACK_RECORDS.clear()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")           # the odd-spec warning
+        got = call()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert [r.op for r in ops.FALLBACK_RECORDS] == [case.split("_")[0]]
+
+
 def test_split_plans_cover_the_work():
     """The grid plans of the CUDA wrappers: every K row and every cache
     row falls in exactly one slice, slices are 32-aligned."""
@@ -302,6 +344,17 @@ def test_cuda_kv_decode(cuda, bits, dtype):
         torch.testing.assert_close(got.float().cpu(), want.float(),
                                    rtol=tol, atol=tol)
         assert not got[0].any()
+
+
+@pytest.mark.parametrize("case", UNFUSED)
+def test_cuda_unfused_packed_weight_raises(cuda, case):
+    """On the card a packed weight that no kernel takes is an error, not
+    a full decode through the plain version."""
+    call, _ = _unfused_case(case, cuda)
+    ops.FALLBACK_RECORDS.clear()
+    with pytest.raises(NotImplementedError, match="no kernel path"):
+        call()
+    assert not ops.FALLBACK_RECORDS
 
 
 def test_cuda_decode_step_matches_cpu(cuda):
