@@ -3,9 +3,9 @@
 Port of the deployment half of ``repro.core.compress``: the
 ``CompressionPlan`` (per-leaf widths, versioned JSON codec),
 ``uniform_plan`` (one Table 3 width for every float leaf of rank >= 2)
-and ``repack`` (re-encode a parameter tree at a plan's widths). The
-kernel-granularity flow (range analysis, precision tuning, slice
-allocation) stays in the reference for now (ROADMAP A14).
+and ``repack`` (re-encode a parameter tree at a plan's widths, in
+place). The kernel-granularity flow (range analysis, precision tuning,
+slice allocation) stays in the reference for now (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -109,20 +109,32 @@ def uniform_plan(tree: Any, bits: int, min_ndim: int = 2) -> CompressionPlan:
 
 
 def repack(tree: Any, plan: CompressionPlan) -> Any:
-    """Re-encode a (partially packed) tree at ``plan``'s widths: packed
-    leaves re-encode value by value (the same object at an unchanged
-    width), plain leaves the plan names are packed, the rest pass
-    through."""
+    """Re-encode a (partially packed) tree at ``plan``'s widths, leaf by
+    leaf and in place: each leaf of a dict or list is replaced as soon as
+    its packed version exists, so the peak is one tree plus one leaf in
+    flight, not two trees (full deepseek-moe-16b holds 34 GB of bf16
+    weights and as much packed). A tuple comes back rebuilt. A packed
+    leaf re-encodes value by value (the same object at an unchanged
+    width), a plain leaf the plan names is packed, the rest pass
+    through. Returns the tree."""
 
-    def one(path, leaf):
-        spec = plan.bits_of(path, leaf)
+    def visit(node, path):
+        if isinstance(node, (dict, list)):
+            for key in (list(node) if isinstance(node, dict)
+                        else range(len(node))):
+                node[key] = visit(node[key], path + (key,))
+            return node
+        if isinstance(node, tuple):
+            return type(node)(visit(v, path + (i,))
+                              for i, v in enumerate(node))
+        spec = plan.bits_of(path, node)
         if spec is None:
-            return leaf
+            return node
         bits, signed = spec if isinstance(spec, tuple) else (spec, True)
-        if is_packed(leaf):
-            return repack_tensor(leaf, bits)
+        if is_packed(node):
+            return repack_tensor(node, bits)
         if bits is None or bits >= 32:
-            return leaf
-        return pack_tensor(leaf, bits, signed=signed)
+            return node
+        return pack_tensor(node, bits, signed=signed)
 
-    return tree_map_with_path(one, tree)
+    return visit(tree, ())

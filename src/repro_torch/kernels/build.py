@@ -37,6 +37,8 @@ SIGNATURES: Dict[str, List] = {
     "rt_take_rows": [_P, _P, _I, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P],
     "rt_packed_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    "rt_packed_matmul_batched": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
     "rt_kv_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
 }

@@ -1,9 +1,9 @@
 """Kernel dispatch by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to the plain PyTorch versions in ``kernels.ref``.
 
-Port of ``repro/kernels/ops.py`` for the four kernels of the serving
-path. The op and path names of every ``DispatchRecord`` are the
-reference's. The reference records once per traced program; the port
+Port of ``repro/kernels/ops.py`` for the kernels of the serving path.
+The op and path names of every ``DispatchRecord`` are the reference's.
+The reference records once per traced program; the port
 runs eagerly, so it keeps each distinct record once (a dict used as an
 ordered set). The per-call count is the wrapper's launch counter. A CUDA
 tensor never falls back to the plain version: its wrapper launches the
@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import kv_decode as _kv_decode
 from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import packed_matmul as _packed_matmul
+from repro_torch.kernels import packed_matmul_batched as _packed_matmul_batched
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import take as _take
 
@@ -86,6 +87,20 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
     return _ref.packed_matmul_ref(x, w_packed, bits, n, transpose)
 
 
+def packed_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor, bits: int,
+                          n: int, transpose: bool = False) -> torch.Tensor:
+    """Fused unpack + matmul over a leading expert axis (the MoE
+    expert-bank hot path): x (E, C, K), w_packed (E, K, n*bits/32) (or
+    (E, n, K*bits/32) when ``transpose``) -> (E, C, n). On the card the
+    output is in x's dtype; the plain version returns float32."""
+    record_dispatch("packed_matmul_batched", "fused_batched",
+                    shape=tuple(w_packed.shape), bits=bits)
+    if x.is_cuda:
+        return _packed_matmul_batched.packed_matmul_batched(
+            x.contiguous(), w_packed, bits, n, transpose=transpose)
+    return _ref.packed_matmul_batched_ref(x, w_packed, bits, n, transpose)
+
+
 def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,
               kv_len: torch.Tensor, bits: int, d: int) -> torch.Tensor:
     record_dispatch("kv_decode", "kv_decode", shape=tuple(k_packed.shape),
@@ -98,7 +113,8 @@ def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,
 
 
 _KERNELS = {"packed_matmul": _packed_matmul, "pack": _pack,
-            "kv_decode": _kv_decode, "take_rows": _take}
+            "kv_decode": _kv_decode, "take_rows": _take,
+            "packed_matmul_batched": _packed_matmul_batched}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -22,36 +22,47 @@ BN, BM, BK = 256, 8, 32          # the kernel's tile sizes (csrc)
 BLOCKS_PER_SM = 2                # split K until the grid has this many
 
 
-def split_plan(m: int, n: int, k: int, sms: int):
-    """(splits, k_chunk): how far K is cut so that the grid covers the
-    SMs. k_chunk is a multiple of BK; the last slice may be short."""
-    tiles = -(-n // BN) * -(-m // BM)
+def split_plan(m: int, n: int, k: int, sms: int, experts: int = 1):
+    """(splits, k_chunk): how far K is cut so that the grid (``experts``
+    products of (m, k) x (k, n)) covers the SMs. k_chunk is a multiple of
+    BK; the last slice may be short."""
+    tiles = experts * -(-n // BN) * -(-m // BM)
     k_tiles = max(-(-k // BK), 1)
     want = max(1, -(-(BLOCKS_PER_SM * sms) // tiles))
     chunk_tiles = -(-k_tiles // min(want, k_tiles))
     return -(-k_tiles // chunk_tiles), chunk_tiles * BK
 
 
+def check_operands(op: str, x: torch.Tensor, w_packed: torch.Tensor,
+                   bits: int, n: int, transpose: bool, w_ndim: int) -> None:
+    """Refuse what the kernel does not take: W's last two axes must be
+    (K, >= n) packed along n, or (n, >= K) packed along K when
+    ``transpose``; the normal orientation also needs 16-byte alignment."""
+    require(x, "x", (torch.float32, torch.bfloat16), op)
+    require(w_packed, "w_packed", (torch.int32,), op)
+    if bits not in FLOAT_FORMATS:
+        raise ValueError(f"{op}: no float format with {bits} bits")
+    if w_packed.ndim != w_ndim:
+        raise ValueError(f"{op}: packed weights are {w_ndim}-D")
+    kdim = x.shape[-1]
+    rows, wwords = w_packed.shape[-2:]
+    if transpose:
+        if rows != n or kdim > wwords // bits * 32:
+            raise ValueError(f"{op}: W {tuple(w_packed.shape)} at {bits} "
+                             f"bits is not ({n}, >= {kdim}) packed")
+    elif rows != kdim or n > wwords // bits * 32:
+        raise ValueError(f"{op}: W {tuple(w_packed.shape)} at {bits} bits "
+                         f"is not ({kdim}, >= {n}) packed")
+    elif w_packed.data_ptr() % 16 or wwords % 4:
+        # the normal orientation streams W with 16-byte loads
+        raise ValueError(f"{op}: W rows must be 16-byte aligned")
+
+
 def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
                   transpose: bool = False) -> torch.Tensor:
-    require(x, "x", (torch.float32, torch.bfloat16), "packed_matmul")
-    require(w_packed, "w_packed", (torch.int32,), "packed_matmul")
-    if bits not in FLOAT_FORMATS:
-        raise ValueError(f"packed_matmul: no float format with {bits} bits")
-    if w_packed.ndim != 2:
-        raise ValueError("packed_matmul: packed weights are 2-D")
+    check_operands("packed_matmul", x, w_packed, bits, n, transpose, 2)
     kdim = x.shape[-1]
     wwords = w_packed.shape[1]
-    if transpose:
-        if w_packed.shape[0] != n or kdim > wwords // bits * 32:
-            raise ValueError(f"packed_matmul: W {tuple(w_packed.shape)} at "
-                             f"{bits} bits is not ({n}, >= {kdim}) packed")
-    elif w_packed.shape[0] != kdim or n > wwords // bits * 32:
-        raise ValueError(f"packed_matmul: W {tuple(w_packed.shape)} at "
-                         f"{bits} bits is not ({kdim}, >= {n}) packed")
-    elif w_packed.data_ptr() % 16:
-        # the normal orientation streams W with 16-byte loads
-        raise ValueError("packed_matmul: W must be 16-byte aligned")
     lead = x.shape[:-1]
     m = math.prod(lead)
     out = torch.empty(lead + (n,), dtype=x.dtype, device=x.device)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's four CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Ports of the oracles in ``repro/kernels/ref.py``. They are the CPU path
 (``kernels.ops`` sends CPU tensors here) and the programs the CUDA
@@ -51,6 +51,19 @@ def packed_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, bits: int,
         return torch.matmul(x.float(), w.t())
     w = unpack_ref(w_packed, bits, n)                            # (K, N)
     return torch.matmul(x.float(), w)
+
+
+def packed_matmul_batched_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                              bits: int, n: int,
+                              transpose: bool = False) -> torch.Tensor:
+    """Per-expert ``x[e] @ unpack(w[e])`` in f32: x (E, C, K); w_packed
+    (E, K, n*bits/32), or (E, n, K*bits/32) when ``transpose``
+    (contraction over the packed axis): the MoE expert-bank product."""
+    if transpose:
+        w = unpack_ref(w_packed, bits, x.shape[-1])              # (E, N, K)
+        return torch.einsum("eck,enk->ecn", x.float(), w)
+    w = unpack_ref(w_packed, bits, n)                            # (E, K, N)
+    return torch.einsum("eck,ekn->ecn", x.float(), w)
 
 
 def kv_decode_ref(q: torch.Tensor, k_packed: torch.Tensor,

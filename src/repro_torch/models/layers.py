@@ -8,12 +8,16 @@ Port of ``repro.models.layers``. Weights arrive as tensors or
     plain last-axis x first-axis contraction (the tied ``unembed`` takes
     the kernel's transpose orientation); the decoded weight never
     reaches device memory.
+  * ``expert_linear`` with a 3-D float ``PackedTensor`` expert bank goes
+    through ``kernels.ops.packed_matmul_batched``: one launch for every
+    expert, no expert's weights decoded into device memory.
   * ``embed`` with a packed table gathers packed rows and decodes only
     those (``PackedTensor.take`` -> ``kernels.ops.take_rows``).
-  * A packed weight that ``linear``, ``unembed`` or ``embed`` cannot hand
-    to a kernel (int-kind or >= 3-D leaves, other specs) decodes in full
-    through ``unpack_maybe`` on the CPU, where that is the plain version
-    of the kernel. On the card it raises: no kernel computes it.
+  * A packed weight that ``linear``, ``unembed``, ``expert_linear`` or
+    ``embed`` cannot hand to a kernel (int-kind leaves, the wrong rank,
+    other specs) decodes in full through ``unpack_maybe`` on the CPU,
+    where that is the plain version of the kernel. On the card it
+    raises: no kernel computes it.
   * Packed norm scales decode through ``unpack_maybe``, as in the
     reference (a materialized decode, no kernel).
 
@@ -49,6 +53,12 @@ def _fusable(w) -> bool:
     """True when a weight can take the fused packed-matmul path."""
     return (is_packed(w) and w.kind == "float"
             and len(w.logical_shape) == 2 and w.bits in FLOAT_FORMATS)
+
+
+def _fusable_batched(w) -> bool:
+    """True when a stacked expert bank can take the batched fused path."""
+    return (is_packed(w) and w.kind == "float"
+            and len(w.logical_shape) == 3 and w.bits in FLOAT_FORMATS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +117,24 @@ def linear(x: torch.Tensor, w, spec: str = "...d,df->...f") -> torch.Tensor:
         if _fusable(w) and _plain_matmul_spec(spec):
             return _packed_matmul(x, w, transpose=False)
         _record_unfused("linear", spec, w, x)
+    return torch.einsum(spec, x, unpack_maybe(w, x.dtype))
+
+
+def expert_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """Per-expert matmul ``out[e] = x[e] @ W[e]`` against an expert bank
+    (E, K, N), x (E, C, K): the MoE dispatch. A 3-D float packed bank
+    (a per-layer slice of the stacked (L, E, K, N) leaf) streams through
+    the batched kernel; plain banks einsum."""
+    spec = "...ck,...kn->...cn"
+    if is_packed(w):
+        if _fusable_batched(w):
+            e, contract, n = w.logical_shape
+            if x.ndim != 3 or x.shape[0] != e or x.shape[-1] != contract:
+                raise ValueError(f"x {tuple(x.shape)} is not (E, C, K) for "
+                                 f"the bank {w.logical_shape}")
+            return kops.packed_matmul_batched(x, w.data, w.bits, n).to(
+                x.dtype)
+        _record_unfused("expert_linear", spec, w, x)
     return torch.einsum(spec, x, unpack_maybe(w, x.dtype))
 
 

@@ -1,4 +1,5 @@
-"""Model assembly for the dense family: init, decode state, decode steps.
+"""Model assembly for the dense and MoE families: init, decode state,
+decode steps.
 
 Port of the serving surface of ``repro.models.lm.LM``:
 
@@ -15,7 +16,9 @@ loop over layer slices; a slice of a contiguous stacked payload is
 contiguous, so the kernels read it in place. The per-layer views are
 built once per parameter tree (``layer_params``). The KV cache is
 updated in place (the returned state shares it with the one passed in);
-``len`` is a new tensor each step. Other families come with ROADMAP A12,
+``len`` is a new tensor each step. The MoE family runs ``moe_apply`` in
+place of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
+per-layer 3-D banks. Other families come with ROADMAP A12,
 per-layer KV widths with A11 and paged state with A10.
 """
 from __future__ import annotations
@@ -49,7 +52,7 @@ class LM:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP A12)")
         if self.cfg.compression.kv_layer_bits is not None:
@@ -75,10 +78,12 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_dense(
                 gen, (cfg.d_model, cfg.vocab_size), dtype=dt)
-        params["blocks"] = {
-            "attn": B.init_attention(gen, cfg, cfg.n_layers),
-            "mlp": B.init_mlp(gen, cfg, cfg.n_layers),
-        }
+        blocks = {"attn": B.init_attention(gen, cfg, cfg.n_layers)}
+        if cfg.family == "moe":
+            blocks["moe"] = B.init_moe(gen, cfg, cfg.n_layers)
+        else:
+            blocks["mlp"] = B.init_mlp(gen, cfg, cfg.n_layers)
+        params["blocks"] = blocks
         return params
 
     def logits_fn(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -112,8 +117,10 @@ class LM:
     def layer_params(self, params: Dict) -> List[Dict]:
         """Layer ``i``'s parameters for every layer, built once per
         parameter tree (the tree is read-only while it serves): stacked
-        leaves sliced, and packed norm scales — rank 1 once sliced, with
-        no kernel path — decoded here once instead of on every step."""
+        leaves sliced (a stacked (L, E, K, N) expert bank gives a 3-D
+        bank per layer), and packed norm scales — rank 1 once sliced,
+        with no kernel path — decoded here once instead of on every
+        step."""
         if self._views is None or self._views[0] is not params:
             def decode_norms(_, leaf):
                 if is_packed(leaf) and len(leaf.logical_shape) == 1:
@@ -136,7 +143,10 @@ class LM:
         for i, lp in enumerate(self.layer_params(params)):
             st = {"k": kv["k"][i], "v": kv["v"][i], "len": state["len"]}
             x, _ = B.attention_decode(lp["attn"], x, cfg, st, positions)
-            x = B.mlp_apply(lp["mlp"], x, cfg)
+            if cfg.family == "moe":
+                x = B.moe_apply(lp["moe"], x, cfg)
+            else:
+                x = B.mlp_apply(lp["mlp"], x, cfg)
         return x
 
     def decode_step(self, params, state: Dict,

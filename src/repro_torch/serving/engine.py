@@ -89,6 +89,8 @@ class ServeEngine:
         if self.pack_weights or self.plan is not None:
             self.weight_plan = self.plan or uniform_plan(
                 self.params, self.cfg.resolved_weight_bits)
+            # in place, leaf by leaf: the engine owns this tree (LM.init's,
+            # or tree_to's copy of the caller's)
             self.params = repack(self.params, self.weight_plan)
         self._pass_bytes = weight_pass_bytes(self.params)
         self._kv_bytes_per_row = self.cfg.kv_bytes_per_token()

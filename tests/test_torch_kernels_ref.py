@@ -377,4 +377,8 @@ def test_cuda_decode_step_matches_cpu(cuda):
         lg, st_g = lm_gpu.decode_step(params, st_g, toks.to(cuda))
         lc, st_c = lm_cpu.decode_step(params_cpu, st_c, toks)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
-    assert all(ops.launch_counts()[k] > before[k] for k in before)
+    after = ops.launch_counts()
+    assert all(after[k] > before[k] for k in before
+               if k != "packed_matmul_batched")
+    # a dense model has no expert banks
+    assert after["packed_matmul_batched"] == before["packed_matmul_batched"]

@@ -162,6 +162,13 @@ def test_unported_modes_raise():
     for kw, item in (({"paged": True}, "A10"), ({"greedy": False}, "A11")):
         with pytest.raises(NotImplementedError, match=item):
             ServeEngine(cfg, max_slots=1, device="cpu", **kw)
+    # the family gate lets dense and moe through, and nothing else yet
+    families = {get_config(a).family: a for a in ARCHS}
+    assert {"ssm", "hybrid", "encdec", "vlm"} <= set(families)
+    for fam in ("ssm", "hybrid", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            ServeEngine(get_config(families[fam]).reduced(), max_slots=1,
+                        device="cpu")
 
 
 def test_kv_append_clamps_like_the_reference():
