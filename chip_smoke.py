@@ -5,32 +5,43 @@
 
 Phases; any failure raises and the script exits non-zero:
 
-1. the card's name and power limit; build the five CUDA kernels from the
+1. the card's name and power limit; build the six CUDA kernels from the
    sources in this checkout (nvcc, one process per source).
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes full-width serving gives it (qwen3-8b for the four dense-path
-   kernels, deepseek-moe-16b's expert banks for packed_matmul_batched,
-   both orientations, plus a ragged shape), with the stated tolerance;
-   kernel, plain and library-call times (CUDA events, weights rotated
-   through enough copies to defeat the 50 MB L2) and the bound (bytes
-   over 3.35 TB/s or f32 operations over 67 TFLOP/s).
+   shapes full-width serving gives it (qwen3-8b for the dense-path
+   kernels and paged_attention, deepseek-moe-16b's expert banks for
+   packed_matmul_batched, both orientations, plus a ragged shape), with
+   the stated tolerance; kernel, plain and library-call times (CUDA
+   events, operands rotated through enough copies to defeat the 50 MB
+   L2) and the bound (bytes over 3.35 TB/s or f32 operations over
+   67 TFLOP/s). paged_attention is also held bit for bit to kv_decode
+   over the same rows laid out dense, and against poison on the scrap
+   page.
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
-   card): 8 requests with prompts of 8-64 tokens, 16 new tokens each,
-   8 slots, max_seq_len 256. Then serve full-width deepseek-moe-16b
-   (28 layers, 64 routed experts top-6 and 2 shared, the same widths):
-   8 requests with prompts of 8-32 tokens, 8 new tokens each, 8 slots,
-   max_seq_len 64. For each model the launch counters are zeroed just
-   before its drain and read just after; every kernel of its path must
-   have launched, exactly as often as the path's shape says.
+   card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
+   of one 64-token system prompt plus 8-32 token suffixes, 16 new
+   tokens each): first with the dense KV cache, then paged (pages of 16
+   rows, prefix pages shared) on the dense engine's weights; the greedy
+   tokens must agree and the pool must drain back to empty. Then serve
+   full-width deepseek-moe-16b (28 layers, 64 routed experts top-6 and 2
+   shared, the same widths): 8 requests with prompts of 8-32 tokens, 8
+   new tokens each, 8 slots, max_seq_len 64. For each drain the launch
+   counters are zeroed just before it and read just after; every kernel
+   of its path must have launched, exactly as often as the path's shape
+   says.
 4. cross-device parity, for each model at 2 layers in f32: decode_step
    on the card (kernels) against the CPU (plain versions) with the same
    packed weights; for deepseek also the number of routing choices
-   (token, k) that differ between the two.
+   (token, k) that differ between the two; for qwen3's reduced config
+   (2 layers, f32) also the paged engine, card against CPU: the same
+   tokens and pool counters, and every decode call of the card's drain
+   replayed on the CPU from the same state.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds every kernel's numbers. Without a card, or without the rest of the
-repository beside it, the script fails before printing either.
+repository beside it (``src/repro_torch``), the script exits 2 before
+printing either.
 """
 from __future__ import annotations
 
@@ -50,6 +61,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 SLOTS, MAX_SEQ, NEW_TOKENS = 8, 256, 16
+# the qwen3-8b drains: a system prompt shared by every request, suffix
+# lengths from, to; the paged drain's page size
+SYSTEM_PROMPT, SUFFIXES, PAGE = 64, (8, 32), 16
 # the deepseek-moe-16b drain: (prompt lengths from, to), new tokens, max_seq_len
 MOE_PROMPTS, MOE_NEW_TOKENS, MOE_MAX_SEQ = (8, 32), 8, 64
 BF16_TOL = 2.0 ** -8             # one bf16 rounding of the f32 result
@@ -65,6 +79,8 @@ KERNELS = {
                   "src/repro/kernels/take.py:51"),
     "packed_matmul_batched": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                               "src/repro/kernels/packed_matmul.py:279"),
+    "paged_attention": ("src/repro_torch/kernels/csrc/kv_decode.cu",
+                        "src/repro/kernels/paged_attention.py:111"),
 }
 
 
@@ -306,6 +322,150 @@ def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
     return tick_summary([rec])
 
 
+def _paged_layout(np, lens, page, max_pages, shared):
+    """A (slots, max_pages) page table for ``lens``: each slot's live
+    pages are distinct shuffled ids from 1, except that slot b2 shares
+    slot b1's first n pages for each (b1, b2, n) of ``shared``; entries
+    past a slot's live pages are the scrap page 0. Returns (table, pool
+    pages with the scrap page, distinct live pages)."""
+    live = [-(-n // page) for n in lens]
+    table = np.zeros((len(lens), max_pages), np.int32)
+    owned = {(b2, j) for b1, b2, n in shared for j in range(n)}
+    n_own = sum(live) - len(owned)
+    ids = iter(np.random.default_rng(0).permutation(n_own) + 1)
+    for b, n in enumerate(live):
+        for j in range(n):
+            if (b, j) not in owned:
+                table[b, j] = next(ids)
+    for b1, b2, n in shared:
+        table[b2, :n] = table[b1, :n]
+    return table, n_own + 1, n_own
+
+
+def _rows_read(table, lens, page):
+    """What a call through ``table`` must read at least: the distinct
+    pool rows below each slot's length (a shared page counted once, up
+    to the longest length naming it) and the table entries of the live
+    pages."""
+    rows, entries = {}, 0
+    for b, n in enumerate(lens):
+        n = min(n, table.shape[1] * page)
+        for j in range(-(-n // page)):
+            p = int(table[b, j])
+            rows[p] = max(rows.get(p, 0), min(page, n - j * page))
+            entries += 1
+    return sum(rows.values()), entries
+
+
+def check_paged_attention(torch, F, ops, ref, gen, cfg):
+    """q (slots, heads, head_dim) bf16 through a page table of shuffled
+    ids over AF16, AF8 and bf16-row pools (page 16): lengths 0, 1, 15,
+    16, 17, 255, 200 (sharing 12 pages with the 255) and 4096; the
+    scrap page holds large finite poison. Held to the plain version
+    within tolerance, bit for bit to kv_decode over the same rows laid
+    out dense, and to itself with a clean scrap page. Timed at AF16 on
+    that case and on a decode tick's shape (every slot sharing the
+    64-token system prompt's pages, lengths near the drain's)."""
+    import numpy as np
+
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    # (name, lengths, table width, shared pages, calls per decode tick)
+    cases = [("check", [0, 1, 15, 16, 17, 255, 200, 4096], 4096 // PAGE,
+              [(5, 6, 12)], 0),
+             ("tick", [72, 80, 88, 96, 104, 112, 76, 92], MAX_SEQ // PAGE,
+              [(0, b, SYSTEM_PROMPT // PAGE) for b in range(1, SLOTS)],
+              cfg.n_layers)]
+    per_call = []
+    for name, lens, max_pages, shared, calls in cases:
+        table_np, pool_pages, n_live = _paged_layout(np, lens, PAGE,
+                                                     max_pages, shared)
+        table = torch.from_numpy(table_np).cuda()
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn((SLOTS, h, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        rows = torch.randn((2, pool_pages, PAGE, hkv * d), generator=gen,
+                           device="cuda")
+        for bits in ((16, 8, 0) if name == "check" else (16,)):
+            poison, clean = rows.clone(), rows.clone()
+            poison[:, 0] = 10.0 if bits else 1e4
+            clean[:, 0] = 0.0
+            pools = {}
+            for key, r in (("poison", poison), ("clean", clean)):
+                pk, pv = (ops.pack(x, bits) if bits else x.to(torch.bfloat16)
+                          for x in r)
+                pools[key] = [x.reshape(pool_pages, PAGE, hkv, -1)
+                              for x in (pk, pv)]
+            kp, vp = pools["poison"]
+            got = ops.paged_attention(q, kp, vp, table, kv_len, bits, d)
+            want = ref.paged_attention_ref(q, kp, vp, table, kv_len, bits, d)
+            again = ops.paged_attention(q, *pools["clean"], table, kv_len,
+                                        bits, d)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = BF16_TOL * want.float().abs().max().item() + 1e-3
+            if err > tol or (lens[0] == 0 and got[0].any().item()):
+                raise AssertionError(
+                    f"paged_attention {name} AF{bits}: max err {err} > tol "
+                    f"{tol}, or kv_len == 0 not zero")
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name} AF{bits}: the "
+                                     "scrap page's poison moved the output")
+            if bits:
+                dense = ops.kv_decode(q, ref.gather_pages_ref(kp, table),
+                                      ref.gather_pages_ref(vp, table), kv_len,
+                                      bits, d)
+                if not torch.equal(dense, got):
+                    raise AssertionError(
+                        f"paged_attention {name} AF{bits}: not bit-identical "
+                        "to kv_decode on the same rows laid out dense")
+            log(json.dumps({"kernel": "paged_attention", "case": name,
+                            "bits": bits, "max_err": err, "tol": tol,
+                            "bit_identical_to_kv_decode": bool(bits)}))
+            if bits != 16:
+                per_call.append({"max_err": err, "calls_per_tick": 0})
+                continue
+            page_bytes = PAGE * hkv * kp.shape[-1] * 4
+            pool_bytes = 2 * pool_pages * page_bytes
+            reps = [(kp, vp)] + [(kp.clone(), vp.clone())
+                                 for _ in range(copies_for(pool_bytes) - 1)]
+            calls_k = [lambda r=r: ops.paged_attention(q, r[0], r[1], table,
+                                                       kv_len, 16, d)
+                       for r in reps]
+            ms, issue = time_ms(torch, calls_k, 100)
+            plain = time_ms(torch, [lambda: ref.paged_attention_ref(
+                q, kp, vp, table, kv_len, 16, d)], 10)[0]
+            group = h // hkv
+            kd, vd = (ref.unpack_ref(ref.gather_pages_ref(x, table), 16, d,
+                                     torch.bfloat16).transpose(1, 2)
+                      .repeat_interleave(group, dim=1).contiguous()
+                      for x in (kp, vp))
+            seq = kd.shape[2]
+            mask = (torch.arange(seq, device="cuda")[None, None, None, :]
+                    < kv_len[:, None, None, None])
+            q4 = q[:, :, None, :]
+            lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask)], 100)[0]
+            rows_live = kv_len.clamp(max=seq).sum().item()
+            rows_read, entries = _rows_read(table_np, lens, PAGE)
+            b_ms, b_by = bound(2 * rows_read * page_bytes // PAGE
+                               + 2 * q.numel() * 2 + entries * 4 + 4 * SLOTS,
+                               4.0 * h * d * rows_live)
+            rec = {"kernel": "paged_attention", "model": cfg.name,
+                   "case": name, "q": list(q.shape), "page": PAGE,
+                   "max_pages": table.shape[1], "kv_len": lens,
+                   "live_pages": n_live, "rows_read": rows_read,
+                   "calls_per_tick": calls,
+                   "max_err": err, "tol": tol, "kernel_ms": ms,
+                   "host_issue_ms": issue, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            log(json.dumps(rec))
+            per_call.append(rec)
+            del reps, kd, vd
+        del rows, pools
+        torch.cuda.empty_cache()
+    return tick_summary(per_call)
+
+
 def check_take_rows(torch, F, ops, ref, gen, cfg):
     """Gather slots rows of the AF16 embedding table (bit-exact), plus
     every AF8/AF12/AF16 code through the decoder."""
@@ -422,25 +582,45 @@ def check_packed_matmul_batched(torch, ops, ref, gen, cfg):
 # phase 3: serve full-width qwen3-8b and deepseek-moe-16b
 # ---------------------------------------------------------------------------
 
-def path_launches(cfg, ticks: int, positions: int):
+def path_launches(cfg, ticks: int, positions: int, paged: bool = False):
     """Kernel launches of a drain with ``ticks`` decode ticks and
     ``positions`` prefill positions, by the code of the decode body: per
     layer q, k, v and o products, the MLP's three (dense) or the router
     and the shared experts' three (moe), the three expert banks (moe),
-    two KV packs and one attention; per position one embedding gather;
-    per tick one lm_head product (prefill drops the logits)."""
+    two KV packs and one attention (kv_decode, or paged_attention on a
+    paged cache); per position one embedding gather; per tick one
+    lm_head product (prefill drops the logits)."""
     L = cfg.n_layers
     moe = cfg.family == "moe"
     pm = 8 if moe else 7
     steps = ticks + positions
     return {"packed_matmul": steps * pm * L + ticks,
             "pack": steps * 2 * L,
-            "kv_decode": steps * L,
+            "kv_decode": 0 if paged else steps * L,
             "take_rows": steps,
-            "packed_matmul_batched": steps * 3 * L if moe else 0}
+            "packed_matmul_batched": steps * 3 * L if moe else 0,
+            "paged_attention": steps * L if paged else 0}
 
 
-def serve(torch, np, cfg, prompt_lens, new_tokens: int, max_seq: int):
+def shared_prefix_prompts(np, cfg):
+    """8 requests of one system prompt plus a suffix each (numpy seed
+    0)."""
+    rng = np.random.default_rng(0)
+    system = [int(t) for t in rng.integers(1, cfg.vocab_size, SYSTEM_PROMPT)]
+    return [system + [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+            for n in rng.integers(SUFFIXES[0], SUFFIXES[1] + 1, SLOTS)]
+
+
+def random_prompts(np, cfg, lens):
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+            for n in rng.integers(lens[0], lens[1] + 1, SLOTS)]
+
+
+def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
+          paged: bool = False, params=None):
+    """Drain ``prompts`` through a full-width engine (on ``params`` when
+    given); returns (launch counts, outputs, engine)."""
     from repro_torch import obs
     from repro_torch.kernels import ops
     from repro_torch.serving import ServeEngine
@@ -449,17 +629,31 @@ def serve(torch, np, cfg, prompt_lens, new_tokens: int, max_seq: int):
     t0 = time.perf_counter()
     tracer = obs.Tracer()
     eng = ServeEngine(cfg, max_seq_len=max_seq, max_slots=SLOTS,
-                      pack_weights=True, tracer=tracer)
+                      pack_weights=True, tracer=tracer, params=params,
+                      paged=paged, kv_page_size=PAGE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    log(f"serve: {cfg.name} {cfg.n_layers} layers {cfg.dtype}, weights "
-        f"{eng.weight_read_bytes / 1e9:.3f} GB packed, engine init "
+    mode = "paged" if paged else "dense"
+    log(f"serve: {cfg.name} {mode} KV, {cfg.n_layers} layers {cfg.dtype}, "
+        f"weights {eng.weight_read_bytes / 1e9:.3f} GB packed, engine init "
         f"{init_s:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
-               for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1,
-                                     SLOTS)]
+    # the host's time to issue each decode tick of the drain against the
+    # time until the card has finished it (prefill does not call
+    # decode_step)
+    step, issue, total = eng.lm.decode_step, [], []
+
+    def timed_decode(p, state, toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(p, state, toks)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        total.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.lm.decode_step = timed_decode
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -468,6 +662,7 @@ def serve(torch, np, cfg, prompt_lens, new_tokens: int, max_seq: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    del eng.lm.decode_step
     outs = [eng.result(r) for r in rids]
     assert all(o is not None and len(o) == new_tokens for o in outs), outs
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
@@ -475,8 +670,9 @@ def serve(torch, np, cfg, prompt_lens, new_tokens: int, max_seq: int):
     prefill = tracer.events("serve.prefill")
     positions = sum(r["attrs"]["chunk"] for r in prefill)
     ticks = stats["decode_calls"]
-    expect = path_launches(cfg, ticks, positions)
-    res = {"model": cfg.name, "requests": len(outs),
+    expect = path_launches(cfg, ticks, positions, paged)
+    res = {"model": cfg.name, "kv": mode, "requests": len(outs),
+           "prompt_tokens": sum(len(p) for p in prompts),
            "tokens": stats["tokens"], "decode_ticks": ticks,
            "prefill_calls": stats["prefill_calls"],
            "prefill_positions": positions, "wall_s": wall,
@@ -487,31 +683,29 @@ def serve(torch, np, cfg, prompt_lens, new_tokens: int, max_seq: int):
            "launches": counts, "launches_expected": expect,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "weight_pass_gb": eng.weight_read_bytes / 1e9}
-    # three more decode ticks by hand: the host's time to issue one tick
-    # against the time until the card has finished it
-    toks = torch.zeros((SLOTS, 1), dtype=torch.int64, device="cuda")
-    issue, total = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, eng.state = eng.lm.decode_step(eng.params, eng.state, toks)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        issue.append((t1 - t0) * 1e3)
-        total.append((time.perf_counter() - t0) * 1e3)
+    if paged:
+        res.update({k: stats[k] for k in (
+            "prefix_hit_rate", "prefix_hits", "prefix_queries", "cow_copies",
+            "table_uploads", "table_upload_bytes", "table_rows_uploaded",
+            "kv_pages_read", "kv_pages_read_dense_equiv",
+            "pool_peak_utilization", "pool_pages_used",
+            "pool_pages_reserved")})
+        res["h2d_table_ms"] = sum(r["dur_s"] * 1e3 for r in
+                                  tracer.events("serve.h2d_table"))
     res["decode_step_issue_ms"] = issue
     res["decode_step_total_ms"] = total
     log("serve: " + json.dumps(res))
     for name, n in expect.items():
         if n and not counts[name]:
             raise AssertionError(f"{name} never launched on the "
-                                 f"{cfg.name} path")
+                                 f"{cfg.name} {mode} path")
     if counts != expect:
-        raise AssertionError(f"{cfg.name}: launch counts {counts} != path "
-                             f"{expect}")
-    del eng
-    torch.cuda.empty_cache()
-    return counts
+        raise AssertionError(f"{cfg.name} {mode}: launch counts {counts} != "
+                             f"path {expect}")
+    if paged and (stats["pool_pages_used"] or stats["pool_pages_reserved"]):
+        raise AssertionError(f"{cfg.name} paged: the pool did not drain "
+                             f"back to empty: {res}")
+    return counts, outs, eng
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +773,76 @@ def parity(torch, np, cfg):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def paged_parity(torch, np, cfg):
+    """The paged engine on ``cfg``'s reduced config (2 layers, narrow
+    widths, f32: the plain versions on the CPU prefill a hundred
+    positions, far too slow at full width), on the card against the CPU
+    with the same packed weights, shared-prefix traffic on an
+    over-committed pool: identical tokens and pool counters; and every
+    decode call of the card's drain replayed on the CPU from the same
+    paged state: max abs logit error (tolerance 1e-3)."""
+    from repro_torch import obs
+    from repro_torch.core.compress import repack, uniform_plan
+    from repro_torch.core.tensor_store import tree_map_with_path, tree_to
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import ServeEngine
+
+    small = dataclasses.replace(cfg.reduced(), n_layers=2, dtype="float32")
+    params = LM(small, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(2))
+    params = repack(params, uniform_plan(params, 16))
+    rng = np.random.default_rng(1)
+    system = [int(t) for t in rng.integers(1, small.vocab_size, 16)]
+    prompts = [system + [int(t) for t in rng.integers(1, small.vocab_size, n)]
+               for n in rng.integers(2, 11, 6)]
+    t0 = time.perf_counter()
+    runs, calls = {}, []
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(small, max_seq_len=64, max_slots=4,
+                          pack_weights=True, paged=True, kv_page_size=8,
+                          kv_pool_pages=16, params=tree_to(params, dev),
+                          device=dev)
+        if dev == "cuda":
+            step = eng.lm.decode_step
+
+            def recording(p, state, toks, step=step):
+                before = tree_map_with_path(
+                    lambda _, t: t.to("cpu", copy=True), state)
+                out = step(p, state, toks)
+                calls.append((before, toks.cpu(), out[0].cpu()))
+                return out
+
+            eng.lm.decode_step = recording
+        rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        stats = eng.run_until_drained()
+        runs[dev] = ([eng.result(r) for r in rids],
+                     {k: stats[k] for k in sorted(
+                         obs.schema.SNAPSHOT_KEYS_PAGED)})
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError(f"{small.name} paged parity: card and CPU "
+                             f"differ: {runs}")
+    lm_c = LM(small, device="cpu")
+    params_c = tree_to(params, "cpu")
+    worst = 0.0
+    for before, toks, lg in calls:
+        # slots holding a request; idle slots attend the scrap page, whose
+        # rows every idle slot writes (in no fixed order on the card)
+        live = before["table"][:, 0] != 0
+        lc, _ = lm_c.decode_step(params_c, before, toks)
+        assert torch.isfinite(lg[live]).all().item()
+        worst = max(worst, (lg[live] - lc[live]).abs().max().item())
+    if worst > 1e-3:
+        raise AssertionError(f"{small.name} paged parity: max logit err "
+                             f"{worst} > 1e-3")
+    st = runs["cpu"][1]
+    log(f"paged parity: {small.name} 2 layers f32, {len(prompts)} requests "
+        f"on a 16-page pool, card vs CPU: tokens and {len(st)} pool counters "
+        f"identical (prefix hits {st['prefix_hits']}, cow {st['cow_copies']}"
+        f", table uploads {st['table_uploads']}); {len(calls)} decode calls "
+        f"replayed on the CPU: max abs logit err {worst:.3g} (tol 1e-3) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def build_summary(log_text: str) -> str:
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log_text)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores",
@@ -595,6 +859,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card",
               file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
+              "run it from a checkout of the repository", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -613,13 +881,10 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.parent.name}); "
         + build_summary((lib_path.parent / "build.log").read_text()))
 
-    # (config, its drain: prompt lengths, new tokens, max_seq_len)
-    paths = [(get_config("qwen3_8b"), (8, 64), NEW_TOKENS, MAX_SEQ),
-             (get_config("deepseek_moe_16b"), MOE_PROMPTS, MOE_NEW_TOKENS,
-              MOE_MAX_SEQ)]
+    qwen, moe = get_config("qwen3_8b"), get_config("deepseek_moe_16b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}                     # model -> kernel -> numbers per tick
-    for cfg, _, _, seq in paths:
+    for cfg, seq in ((qwen, MAX_SEQ), (moe, MOE_MAX_SEQ)):
         r = {"packed_matmul": check_packed_matmul(torch, ops, ref, gen, cfg),
              "pack": check_pack(torch, ops, ref, gen, cfg),
              "kv_decode": check_kv_decode(torch, F, ops, ref, gen, cfg, seq),
@@ -627,17 +892,36 @@ def main() -> int:
         if cfg.family == "moe":
             r["packed_matmul_batched"] = check_packed_matmul_batched(
                 torch, ops, ref, gen, cfg)
+        else:
+            r["paged_attention"] = check_paged_attention(torch, F, ops, ref,
+                                                         gen, cfg)
         results[cfg.name] = r
         log(f"{cfg.name}: kernel device time per decode tick "
             f"{sum(k['ms'] for k in r.values()):.3f} ms, bound "
             f"{sum(k['bound_ms'] for k in r.values()):.3f} ms "
             + json.dumps({n: round(k["ms"], 4) for n, k in r.items()}))
     log(f"kernels checked ({time.perf_counter() - t_start:.0f} s so far)")
-    launches = {cfg.name: serve(torch, np, cfg, prompts, new, seq)
-                for cfg, prompts, new, seq in paths}
+
+    launches = {}                    # drain -> kernel -> launches
+    prompts = shared_prefix_prompts(np, qwen)
+    launches[qwen.name], dense_outs, dense = serve(torch, qwen, prompts,
+                                                   NEW_TOKENS, MAX_SEQ)
+    launches[qwen.name + " paged"], paged_outs, paged = serve(
+        torch, qwen, prompts, NEW_TOKENS, MAX_SEQ, paged=True,
+        params=dense.params)
+    if paged_outs != dense_outs:
+        raise AssertionError(f"{qwen.name}: paged greedy tokens differ from "
+                             f"the dense drain's: {paged_outs} != {dense_outs}")
+    log(f"{qwen.name}: paged and dense greedy tokens identical")
+    del dense, paged               # the weights, before deepseek's
+    torch.cuda.empty_cache()
+    launches[moe.name] = serve(torch, moe, random_prompts(np, moe, MOE_PROMPTS),
+                               MOE_NEW_TOKENS, MOE_MAX_SEQ)[0]
+    torch.cuda.empty_cache()
     log(f"served ({time.perf_counter() - t_start:.0f} s so far)")
-    for cfg, _, _, _ in paths:
+    for cfg in (qwen, moe):
         parity(torch, np, cfg)
+    paged_parity(torch, np, qwen)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -656,7 +940,7 @@ def main() -> int:
             "calls_per_tick": r["calls_per_tick"],
             "timing": f"per decode tick of full-width {model}: "
                       "calls_per_tick x one call",
-            "launches_by_model": {m: c[name] for m, c in launches.items()},
+            "launches_by_drain": {m: c[name] for m, c in launches.items()},
             "ms_per_tick_by_model": {m: rm[name]["ms"]
                                      for m, rm in results.items()
                                      if name in rm}})

@@ -1,7 +1,8 @@
 """The port's CUDA kernels, their plain PyTorch versions and the dispatch.
 
 ``csrc/*.cu`` hold the hand-written kernels for ``sm_90a`` (built and
-bound by ``build``); ``pack``, ``take``, ``packed_matmul`` and
-``kv_decode`` are their wrappers; ``ref`` the plain versions; ``ops``
+bound by ``build``); ``pack``, ``take``, ``packed_matmul``,
+``packed_matmul_batched``, ``kv_decode`` and ``paged_attention`` are
+their wrappers; ``ref`` the plain versions; ``ops``
 sends each call to one or the other by the device of its tensors.
 """

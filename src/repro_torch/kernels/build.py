@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, List] = {
                                  _I, _I, _I, _P],
     "rt_kv_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
+    "rt_paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

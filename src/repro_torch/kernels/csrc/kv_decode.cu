@@ -1,7 +1,9 @@
-// kv_decode: one-token GQA attention over a dense packed KV cache.
+// kv_decode and paged_attention: one-token GQA attention over a packed KV
+// cache, dense or paged, through one body.
 //
-// Replaces the Pallas TPU kernel repro/kernels/kv_decode.py:kv_decode
-// (_kv_decode_kernel).
+// Replaces the Pallas TPU kernels repro/kernels/kv_decode.py:kv_decode
+// (_kv_decode_kernel) and repro/kernels/paged_attention.py:paged_attention
+// (_paged_attn_kernel).
 //
 // Bound on this card: bytes. Each live cache row is read once (K and V,
 // bits/8 bytes per element) and used by the G = H / Hkv query heads of
@@ -18,6 +20,17 @@
 // (m, l, acc) in chunk order. Rows at or past kv_len are never read;
 // kv_len larger than S counts as S (idle slots keep stepping past the
 // end); kv_len == 0 gives zeros. Any S works: the last chunk is masked.
+//
+// Paging is only the row's address. Position t of sequence b lives in
+// cache row table[b, t / page] * page + t % page; the dense cache is the
+// case page = S, table[b] = b (a null table). The chunks run over
+// positions, so a paged call and a dense call with S = max_pages * page
+// run the same chunks in the same order and give the same bits. Page
+// ids come from device memory, clamped into the pool; a page whose
+// first position is at or past kv_len holds no live row and is never
+// read, so the scrap page 0 of unallocated table entries is never read.
+// A pool of plain rows (bits 0: bf16 or f32, head_dim wide) loads its
+// elements as they are.
 #include <cmath>
 
 #include "codec.cuh"
@@ -39,12 +52,39 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int B, typename QT>
-__global__ void kvd_partial(const QT* __restrict__ q, const uint32_t* __restrict__ kc,
-                            const uint32_t* __restrict__ vc, const int* __restrict__ kv_len,
-                            float* __restrict__ m_ws, float* __restrict__ l_ws,
-                            float* __restrict__ acc_ws, int H, int Hkv, int S, int D, int words,
-                            int chunk, int n_chunks, float scale) {
+// Cache row of position t of sequence b: dense (table == nullptr, page
+// == S) or through the page table.
+__device__ __forceinline__ long long cache_row(const int* __restrict__ table, int b, int t,
+                                               int page, int max_pages, int pool_pages) {
+  const int p = t / page;
+  int id = b;
+  if (table != nullptr) {
+    id = table[(long long)b * max_pages + p];
+    id = id < 0 ? 0 : (id >= pool_pages ? pool_pages - 1 : id);
+  }
+  return (long long)id * page + (t - p * page);
+}
+
+// Element d = 32 * t + lane of a row: a code of a packed row (B > 0,
+// KT = uint32_t; the pad codes of the last group decode to 0), or a
+// plain bf16/f32 element (B == 0).
+template <int B, typename KT>
+__device__ __forceinline__ float row_elem(const KT* __restrict__ row, int t, int lane, int D) {
+  if constexpr (B == 0) {
+    const int d = t * 32 + lane;
+    return d < D ? rt::to_f32(row[d]) : 0.f;
+  } else {
+    return rt::decode_float<B>(rt::extract_code<B>(row + t * B, lane));
+  }
+}
+
+template <int B, typename KT, typename QT>
+__global__ void kvd_partial(const QT* __restrict__ q, const KT* __restrict__ kc,
+                            const KT* __restrict__ vc, const int* __restrict__ table,
+                            const int* __restrict__ kv_len, float* __restrict__ m_ws,
+                            float* __restrict__ l_ws, float* __restrict__ acc_ws, int H, int Hkv,
+                            int page, int max_pages, int pool_pages, int D, int words, int chunk,
+                            int n_chunks, float scale) {
   extern __shared__ float smem[];
   const int G = H / Hkv;
   float* q_s = smem;            // (G, D)
@@ -54,6 +94,7 @@ __global__ void kvd_partial(const QT* __restrict__ q, const uint32_t* __restrict
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int ngroups = (D + 31) >> 5;
+  const int S = page * max_pages;
   int L = kv_len[b];
   L = L < 0 ? 0 : (L > S ? S : L);
   const int s0 = c * chunk;
@@ -72,11 +113,11 @@ __global__ void kvd_partial(const QT* __restrict__ q, const uint32_t* __restrict
 
   // scores: one warp per cache row
   for (int i = warp; i < n; i += nwarps) {
-    const uint32_t* row = kc + (((long long)b * S + s0 + i) * Hkv + kvh) * words;
+    const KT* row =
+        kc + (cache_row(table, b, s0 + i, page, max_pages, pool_pages) * Hkv + kvh) * words;
     float kd[kMaxGroups];
 #pragma unroll
-    for (int t = 0; t < kMaxGroups; ++t)
-      kd[t] = t < ngroups ? rt::decode_float<B>(rt::extract_code<B>(row + t * B, lane)) : 0.f;
+    for (int t = 0; t < kMaxGroups; ++t) kd[t] = t < ngroups ? row_elem<B>(row, t, lane, D) : 0.f;
     for (int g = 0; g < G; ++g) {
       float part_dot = 0.f;
 #pragma unroll
@@ -117,8 +158,9 @@ __global__ void kvd_partial(const QT* __restrict__ q, const uint32_t* __restrict
 #pragma unroll
     for (int j = 0; j < kAccHeads; ++j) acc[j] = 0.f;
     for (int i = 0; i < n; ++i) {
-      const uint32_t* row = vc + (((long long)b * S + s0 + i) * Hkv + kvh) * words;
-      const float v = rt::decode_float<B>(rt::extract_code<B>(row + warp * B, lane));
+      const KT* row =
+          vc + (cache_row(table, b, s0 + i, page, max_pages, pool_pages) * Hkv + kvh) * words;
+      const float v = row_elem<B>(row, warp, lane, D);
 #pragma unroll
       for (int j = 0; j < kAccHeads; ++j)
         if (g0 + j < G) acc[j] = fmaf(p_s[(g0 + j) * chunk + i], v, acc[j]);
@@ -162,27 +204,65 @@ __global__ void kvd_merge(const float* __restrict__ m_ws, const float* __restric
   out[(long long)bq * D + d] = rt::from_f32<QT>(res);
 }
 
-template <int B, typename QT>
-int launch(const void* q, const void* k, const void* v, const void* kv_len, void* out,
-           void* m_ws, void* l_ws, void* acc_ws, int batch, int H, int Hkv, int S, int D,
-           int words, int chunk, int n_chunks, cudaStream_t s) {
+template <int B, typename KT, typename QT>
+int launch(const void* q, const void* k, const void* v, const void* table, const void* kv_len,
+           void* out, void* m_ws, void* l_ws, void* acc_ws, int batch, int H, int Hkv, int page,
+           int max_pages, int pool_pages, int D, int words, int chunk, int n_chunks,
+           cudaStream_t s) {
   const int G = H / Hkv;
   const int threads = 32 * ((D + 31) / 32);
   const size_t smem = (size_t)G * (D + chunk) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kvd_partial<B, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kvd_partial<B, KT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(batch * Hkv, n_chunks);
-  kvd_partial<B, QT><<<grid, threads, smem, s>>>(
-      (const QT*)q, (const uint32_t*)k, (const uint32_t*)v, (const int*)kv_len, (float*)m_ws,
-      (float*)l_ws, (float*)acc_ws, H, Hkv, S, D, words, chunk, n_chunks,
-      1.0f / sqrtf((float)D));
+  kvd_partial<B, KT, QT><<<grid, threads, smem, s>>>(
+      (const QT*)q, (const KT*)k, (const KT*)v, (const int*)table, (const int*)kv_len,
+      (float*)m_ws, (float*)l_ws, (float*)acc_ws, H, Hkv, page, max_pages, pool_pages, D, words,
+      chunk, n_chunks, 1.0f / sqrtf((float)D));
   kvd_merge<QT><<<batch * H, threads, 0, s>>>((const float*)m_ws, (const float*)l_ws,
                                              (const float*)acc_ws, (QT*)out, H, Hkv, D,
                                              n_chunks);
   return 0;
+}
+
+// kv_kind: 0 packed words at ``bits``, 1 f32 rows, 2 bf16 rows.
+template <typename QT>
+int launch_kind(int kv_kind, int bits, const void* q, const void* k, const void* v,
+                const void* table, const void* kv_len, void* out, void* m_ws, void* l_ws,
+                void* acc_ws, int batch, int H, int Hkv, int page, int max_pages,
+                int pool_pages, int D, int words, int chunk, int n_chunks, cudaStream_t s) {
+#define RT_KVD_ARGS                                                                        \
+  q, k, v, table, kv_len, out, m_ws, l_ws, acc_ws, batch, H, Hkv, page, max_pages, pool_pages, \
+      D, words, chunk, n_chunks, s
+  if (kv_kind == 1) return launch<0, float, QT>(RT_KVD_ARGS);
+  if (kv_kind == 2) return launch<0, __nv_bfloat16, QT>(RT_KVD_ARGS);
+  if (kv_kind != 0) return (int)cudaErrorInvalidValue;
+  int rc;
+  RT_FLOAT_WIDTHS(bits, (rc = launch<B, uint32_t, QT>(RT_KVD_ARGS)));
+#undef RT_KVD_ARGS
+  return rc;
+}
+
+int attend(const void* q, int q_bf16, const void* k, const void* v, int kv_kind,
+           const void* table, const void* kv_len, void* out, void* m_ws, void* l_ws,
+           void* acc_ws, int batch, int H, int Hkv, int page, int max_pages, int pool_pages,
+           int D, int words, int bits, int chunk, int n_chunks, void* stream) {
+  if (batch == 0 || H == 0) return 0;
+  if (D > 32 * kMaxGroups || Hkv == 0 || H % Hkv || page < 1 || max_pages < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rc = q_bf16 ? launch_kind<__nv_bfloat16>(kv_kind, bits, q, k, v, table, kv_len, out,
+                                                     m_ws, l_ws, acc_ws, batch, H, Hkv, page,
+                                                     max_pages, pool_pages, D, words, chunk,
+                                                     n_chunks, s)
+                        : launch_kind<float>(kv_kind, bits, q, k, v, table, kv_len, out, m_ws,
+                                             l_ws, acc_ws, batch, H, Hkv, page, max_pages,
+                                             pool_pages, D, words, chunk, n_chunks, s);
+  if (rc) return rc;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -194,19 +274,19 @@ extern "C" int rt_kv_decode(const void* q, int q_bf16, const void* k, const void
                             const void* kv_len, void* out, void* m_ws, void* l_ws, void* acc_ws,
                             int batch, int H, int Hkv, int S, int D, int words, int bits,
                             int chunk, int n_chunks, void* stream) {
-  if (batch == 0 || H == 0) return 0;
-  if (D > 32 * kMaxGroups || Hkv == 0 || H % Hkv) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (q_bf16) {
-    RT_FLOAT_WIDTHS(bits, (rc = launch<B, __nv_bfloat16>(q, k, v, kv_len, out, m_ws, l_ws,
-                                                         acc_ws, batch, H, Hkv, S, D, words,
-                                                         chunk, n_chunks, s)));
-  } else {
-    RT_FLOAT_WIDTHS(bits, (rc = launch<B, float>(q, k, v, kv_len, out, m_ws, l_ws, acc_ws,
-                                                 batch, H, Hkv, S, D, words, chunk,
-                                                 n_chunks, s)));
-  }
-  if (rc) return rc;
-  return (int)cudaGetLastError();
+  // the dense cache is one page of S rows per sequence (none when S = 0)
+  return attend(q, q_bf16, k, v, 0, nullptr, kv_len, out, m_ws, l_ws, acc_ws, batch, H, Hkv,
+                S > 0 ? S : 1, S > 0 ? 1 : 0, batch, D, words, bits, chunk, n_chunks, stream);
+}
+
+// The paged twin: k, v pools (pool_pages, page, Hkv, words) of int32
+// words (kv_kind 0) or of f32/bf16 rows, words = D (kv_kind 1/2); table
+// (B, max_pages) int32 page ids. Scratch as for rt_kv_decode.
+extern "C" int rt_paged_attention(const void* q, int q_bf16, const void* k, const void* v,
+                                  int kv_kind, const void* table, const void* kv_len, void* out,
+                                  void* m_ws, void* l_ws, void* acc_ws, int batch, int H, int Hkv,
+                                  int page, int max_pages, int pool_pages, int D, int words,
+                                  int bits, int chunk, int n_chunks, void* stream) {
+  return attend(q, q_bf16, k, v, kv_kind, table, kv_len, out, m_ws, l_ws, acc_ws, batch, H, Hkv,
+                page, max_pages, pool_pages, D, words, bits, chunk, n_chunks, stream);
 }

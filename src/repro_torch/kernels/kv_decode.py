@@ -5,7 +5,8 @@ attention of q (B, H, D) over a dense packed cache K, V
 (B, S, Hkv, ceil(D/32) * bits) int32 words, masked at ``kv_len`` (B,)
 (values past S count as S; 0 gives zeros). Output (B, H, D) in q's
 dtype. The sequence is split into chunks across blocks (flash-decoding)
-and the chunks are merged in order.
+and the chunks are merged in order. The kernel's body is shared with
+``paged_attention`` (the dense cache is one page per sequence).
 """
 from __future__ import annotations
 
@@ -33,6 +34,14 @@ def chunk_plan(pairs: int, s: int, sms: int):
     return chunk, max(-(-s // chunk), 1)
 
 
+def scratch(q: torch.Tensor, pairs: int, n_chunks: int, group: int, d: int):
+    """The split's f32 scratch, one buffer: per-chunk max, sum (pairs,
+    n_chunks, group) and accumulator (pairs, n_chunks, group, d)."""
+    parts = pairs * n_chunks * group
+    ws = torch.empty(parts * (2 + d), dtype=torch.float32, device=q.device)
+    return ws[:parts], ws[parts:2 * parts], ws[2 * parts:]
+
+
 def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,
               kv_len: torch.Tensor, bits: int, d: int) -> torch.Tensor:
     require(q, "q", (torch.float32, torch.bfloat16), "kv_decode")
@@ -52,13 +61,9 @@ def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,
             f"kv_decode: q {tuple(q.shape)}, K {tuple(k_packed.shape)}, "
             f"kv_len {tuple(kv_len.shape)} at {bits} bits and d={d} do not "
             f"fit (head_dim <= {MAX_HEAD_DIM})")
-    g = h // hkv
     chunk, n_chunks = chunk_plan(b * hkv, s, sm_count(q))
     out = torch.empty_like(q)
-    # one scratch buffer: per-chunk max, sum and accumulator
-    parts = b * hkv * n_chunks * g
-    ws = torch.empty(parts * (2 + d), dtype=torch.float32, device=q.device)
-    m_ws, l_ws, acc_ws = ws[:parts], ws[parts:2 * parts], ws[2 * parts:]
+    m_ws, l_ws, acc_ws = scratch(q, b * hkv, n_chunks, h // hkv, d)
     rc = library().rt_kv_decode(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_packed.data_ptr(),
         v_packed.data_ptr(), kv_len.data_ptr(), out.data_ptr(),

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import kv_decode as _kv_decode
 from repro_torch.kernels import pack as _pack
+from repro_torch.kernels import paged_attention as _paged_attention
 from repro_torch.kernels import packed_matmul as _packed_matmul
 from repro_torch.kernels import packed_matmul_batched as _packed_matmul_batched
 from repro_torch.kernels import ref as _ref
@@ -112,9 +113,27 @@ def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,
     return _ref.kv_decode_ref(q, k_packed, v_packed, bits, d, kv_len)
 
 
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, table: torch.Tensor,
+                    kv_len: torch.Tensor, bits: int, d: int) -> torch.Tensor:
+    """Attend one token straight through the page table (the paged
+    serving hot path): pools (P+1, page, Hkv, W) packed words, or rows
+    when ``bits`` is 0; table (B, max_pages) int32 page ids. Only the
+    pages the table names are read."""
+    record_dispatch("paged_attention", "fused_paged",
+                    shape=tuple(k_pool.shape), bits=bits)
+    if q.is_cuda:
+        return _paged_attention.paged_attention(
+            q.contiguous(), k_pool, v_pool, table.to(torch.int32).contiguous(),
+            kv_len.to(torch.int32).contiguous(), bits, d)
+    return _ref.paged_attention_ref(q, k_pool, v_pool, table, kv_len, bits,
+                                    d)
+
+
 _KERNELS = {"packed_matmul": _packed_matmul, "pack": _pack,
             "kv_decode": _kv_decode, "take_rows": _take,
-            "packed_matmul_batched": _packed_matmul_batched}
+            "packed_matmul_batched": _packed_matmul_batched,
+            "paged_attention": _paged_attention}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -66,18 +66,15 @@ def packed_matmul_batched_ref(x: torch.Tensor, w_packed: torch.Tensor,
     return torch.einsum("eck,ekn->ecn", x.float(), w)
 
 
-def kv_decode_ref(q: torch.Tensor, k_packed: torch.Tensor,
-                  v_packed: torch.Tensor, bits: int, d: int,
-                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Single-token attention over a packed KV cache: q (B, H, D),
-    K/V (B, S, Hkv, D*bits/32), kv_len (B,) valid lengths."""
+def _attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """One-token GQA attention of q (B, H, D) over float rows K, V
+    (B, S, Hkv, D), masked at ``kv_len`` (B,), in f32."""
     b, h, dim = q.shape
-    s, hkv = k_packed.shape[1], k_packed.shape[2]
+    s, hkv = k.shape[1], k.shape[2]
     group = h // hkv
-    k = unpack_ref(k_packed, bits, d)                            # (B, S, Hkv, D)
-    v = unpack_ref(v_packed, bits, d)
     qg = q.reshape(b, hkv, group, dim).float()
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, k) / math.sqrt(dim)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(dim)
     if kv_len is not None:
         mask = (torch.arange(s, device=q.device)[None, None, None, :]
                 < kv_len[:, None, None, None])
@@ -87,5 +84,41 @@ def kv_decode_ref(q: torch.Tensor, k_packed: torch.Tensor,
     mx = torch.where(torch.isfinite(mx), mx, 0.0)
     p = torch.exp(logits - mx)
     p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return out.reshape(b, h, dim).to(q.dtype)
+
+
+def kv_decode_ref(q: torch.Tensor, k_packed: torch.Tensor,
+                  v_packed: torch.Tensor, bits: int, d: int,
+                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token attention over a packed KV cache: q (B, H, D),
+    K/V (B, S, Hkv, D*bits/32), kv_len (B,) valid lengths."""
+    return _attend_ref(q, unpack_ref(k_packed, bits, d),
+                       unpack_ref(v_packed, bits, d), kv_len)
+
+
+def gather_pages_ref(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The per-sequence view of a page pool: pool (P+1, page, Hkv, W),
+    table (B, max_pages) page ids -> (B, max_pages*page, Hkv, W), whose
+    row ``p`` of sequence ``b`` is pool row (table[b, p // page],
+    p % page)."""
+    g = pool[table.long()]                       # (B, mp, page, Hkv, W)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, table: torch.Tensor,
+                        kv_len: torch.Tensor, bits: int,
+                        d: int) -> torch.Tensor:
+    """One-token attention through the page table: q (B, H, D); pools
+    (P+1, page, Hkv, D*bits/32) packed words, or (P+1, page, Hkv, D)
+    float rows when ``bits`` is 0; table (B, max_pages) int32; kv_len
+    (B,). Gathers the pages the table names into the dense view, then
+    attends as ``kv_decode_ref`` does. Rows gathered through scrap
+    entries lie at or past ``kv_len``, where their weight is exactly 0;
+    ``kv_len == 0`` gives zeros."""
+    kc = gather_pages_ref(k_pool, table)
+    vc = gather_pages_ref(v_pool, table)
+    if bits:
+        return kv_decode_ref(q, kc, vc, bits, d, kv_len)
+    return _attend_ref(q, kc, vc, kv_len)

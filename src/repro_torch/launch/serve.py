@@ -2,13 +2,20 @@
 
     python -m repro_torch.launch.serve --arch qwen3_8b --pack-weights \
         [--reduced] [--requests 16] [--max-new-tokens 8] \
-        [--max-seq-len 64] [--slots 4] [--device cpu]
+        [--max-seq-len 64] [--slots 4] [--device cpu] \
+        [--paged] [--kv-page-size 16] [--kv-pool-pages N] \
+        [--paged-attn | --gather-attn]
 
 Runs on the CUDA device unless ``--device cpu`` is given (and raises
 without a card). ``--reduced`` serves the small same-family config; by
 default the full-width config is served (the reference's launcher
-cannot turn ``--reduced`` off). Weights are random from a fixed seed;
-prompts are 4 random token ids each, from numpy seed 0.
+cannot turn ``--reduced`` off). ``--paged`` pages the KV cache: pages
+of ``--kv-page-size`` rows from a pool of ``--kv-pool-pages`` (default
+slots x pages per sequence), per-request page tables and shared prompt
+prefixes; attention reads the pool through the table, or, with
+``--gather-attn`` (CPU only), through the gathered dense view. Weights
+are random from a fixed seed; prompts are 4 random token ids each, from
+numpy seed 0.
 """
 from __future__ import annotations
 
@@ -30,6 +37,22 @@ def main(argv=None) -> None:
                     help="pack the weights at the config's planned width")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--paged", action="store_true",
+                    help="page the KV cache: per-request page tables over "
+                         "a shared page pool")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="KV rows per page (must divide --max-seq-len)")
+    ap.add_argument("--kv-pool-pages", type=int, default=None,
+                    help="pool pages (default: slots x pages per "
+                         "sequence; fewer over-commit slots)")
+    ap.add_argument("--paged-attn", dest="paged_attn", action="store_true",
+                    default=True,
+                    help="paged only: attend through the page table "
+                         "(the default)")
+    ap.add_argument("--gather-attn", dest="paged_attn",
+                    action="store_false",
+                    help="paged only, CPU only: attend over the gathered "
+                         "dense view (the parity oracle)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
@@ -40,7 +63,9 @@ def main(argv=None) -> None:
         cfg = cfg.reduced()
     eng = ServeEngine(cfg, max_seq_len=args.max_seq_len,
                       max_slots=args.slots, pack_weights=args.pack_weights,
-                      device=args.device)
+                      paged=args.paged, kv_page_size=args.kv_page_size,
+                      kv_pool_pages=args.kv_pool_pages,
+                      paged_attn=args.paged_attn, device=args.device)
     rng = np.random.default_rng(0)
     rids = [eng.submit([int(t) for t in rng.integers(1, cfg.vocab_size, 4)],
                        max_new_tokens=args.max_new_tokens)
@@ -50,6 +75,16 @@ def main(argv=None) -> None:
     print(f"completed {done}/{len(rids)} requests on {eng.device}; "
           f"{stats['tokens']} tokens in {stats['ticks']} ticks; "
           f"slots={stats['slots']}; wall {stats['wall_s']:.3f} s")
+    if args.paged:
+        print(f"paged: page_size={stats['kv_page_size']} "
+              f"pool_pages={stats['kv_pool_pages']} "
+              f"pool_peak_utilization={stats['pool_peak_utilization']:.2f} "
+              f"prefix_hit_rate={stats['prefix_hit_rate']:.2f}")
+        print(f"paged-attn: fused={stats['paged_attn']} "
+              f"pages_read={stats['kv_pages_read']} "
+              f"(dense-equiv {stats['kv_pages_read_dense_equiv']}) "
+              f"table_rows_uploaded={stats['table_rows_uploaded']} "
+              f"table_upload_bytes={stats['table_upload_bytes']}")
 
 
 if __name__ == "__main__":

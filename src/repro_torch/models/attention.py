@@ -1,12 +1,17 @@
-"""Cached single-token decode attention and the KV append.
+"""Cached single-token decode attention and the KV append, dense and
+paged.
 
 Port of the decode half of ``repro.models.attention``. A packed cache is
 an int32 word tensor (B, S, Hkv, ceil(D/32) * bits): the append packs
 each new row through ``kernels.ops.pack`` and attention reads the words
 through ``kernels.ops.kv_decode``, so the cache is never decoded to
-device memory. The prefill/training attention comes with ROADMAP A13.
+device memory. A paged cache is one layer's page pool (P+1, page, Hkv,
+W) shared by all sequences and a page table (B, max_pages): the append
+writes the row straight to its physical page and attention reads the
+pool through the table (``kernels.ops.paged_attention``). The
+prefill/training attention comes with ROADMAP A13.
 
-Unlike the reference, the append writes the cache in place (the caller's
+Unlike the reference, the appends write the cache in place (the caller's
 state is updated, not copied): the cache is the largest tensor of the
 decode state and the engine never needs the old one.
 """
@@ -50,15 +55,20 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     sequence, in place. A packed cache takes the row packed as one
     (B, Hkv*D) operand, reshaped to (B, Hkv, words), as the reference
     does."""
-    if kv_bits:
-        b = k_new.shape[0]
-        k_new = kops.pack(k_new.reshape(b, -1).float(), kv_bits).reshape(
-            b, k_new.shape[1], -1)
-        v_new = kops.pack(v_new.reshape(b, -1).float(), kv_bits).reshape(
-            b, v_new.shape[1], -1)
-    _write_rows(k_cache, k_new, kv_len)
-    _write_rows(v_cache, v_new, kv_len)
+    _write_rows(k_cache, _pack_row(k_new, kv_bits), kv_len)
+    _write_rows(v_cache, _pack_row(v_new, kv_bits), kv_len)
     return k_cache, v_cache
+
+
+def _pack_row(row: torch.Tensor, kv_bits: Optional[int]) -> torch.Tensor:
+    """One token's (B, Hkv, D) row as the cache stores it: packed as one
+    (B, Hkv*D) operand, reshaped to (B, Hkv, words); as it is when the
+    cache is not packed."""
+    if not kv_bits:
+        return row
+    b = row.shape[0]
+    return kops.pack(row.reshape(b, -1).float(), kv_bits).reshape(
+        b, row.shape[1], -1)
 
 
 def _write_rows(cache: torch.Tensor, row: torch.Tensor,
@@ -69,3 +79,43 @@ def _write_rows(cache: torch.Tensor, row: torch.Tensor,
     pos = kv_len.long().clamp(0, cache.shape[1] - 1)
     batch = torch.arange(cache.shape[0], device=cache.device)
     cache[batch, pos] = row.to(cache.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, table: torch.Tensor,
+                           kv_len: torch.Tensor,
+                           kv_bits: Optional[int] = None) -> torch.Tensor:
+    """Score one token (q (B, H, D)) straight through the page table:
+    only the pages the table names are read."""
+    return kops.paged_attention(q, k_pool, v_pool, table, kv_len,
+                                kv_bits or 0, q.shape[-1])
+
+
+def append_kv_pool_row(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       table: torch.Tensor, kv_len: torch.Tensor,
+                       kv_bits: Optional[int] = None):
+    """Write one token's (B, Hkv, D) K/V row straight to its physical
+    page, in place. The row packs as ``update_kv_cache`` packs it, so
+    dense and paged caches hold identical words. Lengths past the table
+    clamp onto its last entry (the scrap page 0 for an idle slot)."""
+    rows = pool_row_index(k_pool.shape[1], table, kv_len)
+    scatter_pool_rows(k_pool, _pack_row(k_new, kv_bits), rows)
+    scatter_pool_rows(v_pool, _pack_row(v_new, kv_bits), rows)
+    return k_pool, v_pool
+
+
+def pool_row_index(page: int, table: torch.Tensor,
+                   kv_len: torch.Tensor) -> torch.Tensor:
+    """The flat pool row (page id * page + offset) that holds position
+    ``kv_len[b]`` of sequence b, the position clamped to max_pages *
+    page - 1."""
+    pos = kv_len.long().clamp(0, table.shape[1] * page - 1)
+    ids = table.long().gather(1, (pos // page)[:, None])[:, 0]
+    return ids * page + pos % page
+
+
+def scatter_pool_rows(pool: torch.Tensor, row: torch.Tensor,
+                      rows: torch.Tensor) -> None:
+    """pool's flat rows ``rows`` = row (B, Hkv, W), in place."""
+    pool.view((-1,) + tuple(pool.shape[2:]))[rows] = row.to(pool.dtype)

@@ -15,7 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.models.attention import decode_attention, update_kv_cache
+from repro_torch.models.attention import (append_kv_pool_row,
+                                          decode_attention,
+                                          paged_decode_attention,
+                                          update_kv_cache)
 from repro_torch.models.config import ModelConfig
 
 
@@ -36,29 +39,58 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n: int) -> Dict:
     return p
 
 
-def attention_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                     state: Dict, positions: torch.Tensor
-                     ) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, 1, d); state {k, v, len}: one layer's cache, appended in
-    place at ``len``."""
+def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """The decode step's q (B, 1, H, D), k and v (B, 1, Hkv, D): norms,
+    projections and rope."""
     b = x.shape[0]
     hd, h, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     xn = L.rms_norm(x, p["ln"])
     q = L.linear(xn, p["wq"]).reshape(b, 1, h, hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"])
-    kv_bits = cfg.compression.kv_bits
     k = L.linear(xn, p["wk"]).reshape(b, 1, hkv, hd)
     v = L.linear(xn, p["wv"]).reshape(b, 1, hkv, hd)
     if cfg.qk_norm:
         k = L.rms_norm(k, p["k_norm"])
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(p: Dict, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Residual plus the output projection of o (B, H, D)."""
+    return x + L.linear(o.reshape(x.shape[0], 1, -1), p["wo"],
+                        "...f,fd->...d")
+
+
+def attention_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                     state: Dict, positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, d); state {k, v, len}: one layer's cache, appended in
+    place at ``len``."""
+    kv_bits = cfg.compression.kv_bits
+    q, k, v = _project_qkv(p, x, cfg, positions)
     kc, vc = update_kv_cache(state["k"], state["v"], k[:, 0], v[:, 0],
                              state["len"], kv_bits)
     o = decode_attention(q[:, 0], kc, vc, state["len"] + 1, kv_bits)
-    out = x + L.linear(o.reshape(b, 1, h * hd), p["wo"], "...f,fd->...d")
-    return out, dict(state, k=kc, v=vc)
+    return _attn_out(p, x, o), dict(state, k=kc, v=vc)
+
+
+def attention_decode_paged(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                           kv: Dict, table: torch.Tensor,
+                           kv_len: torch.Tensor, positions: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Dict]:
+    """The paged twin of ``attention_decode``: the same q/k/v program,
+    the new row written straight to its physical page of ``kv`` (one
+    layer's pools {k, v} of (P+1, page, Hkv, W), in place), attention
+    through the page table ``table``."""
+    kv_bits = cfg.compression.kv_bits
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    kc, vc = append_kv_pool_row(kv["k"], kv["v"], k[:, 0], v[:, 0], table,
+                                kv_len, kv_bits)
+    o = paged_decode_attention(q[:, 0], kc, vc, table, kv_len + 1, kv_bits)
+    return _attn_out(p, x, o), {"k": kc, "v": vc}
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: int) -> Dict:

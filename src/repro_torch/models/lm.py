@@ -5,6 +5,8 @@ Port of the serving surface of ``repro.models.lm.LM``:
 
   * ``init(gen)``                          -> params (stacked (L, ...) leaves)
   * ``init_decode_state(batch, seq_len)``  -> zeroed dense per-slot KV state
+  * ``init_paged_decode_state(batch, seq_len, page_size, n_pages)``
+                                           -> zeroed page pool + page table
   * ``decode_step(params, state, tokens)`` -> (logits (B, 1, V), state)
   * ``verify_step(params, state, tokens)`` -> (logits (B, T, V), state)
   * ``prefill_step(params, state, tokens, n_valid)`` -> state
@@ -18,8 +20,14 @@ built once per parameter tree (``layer_params``). The KV cache is
 updated in place (the returned state shares it with the one passed in);
 ``len`` is a new tensor each step. The MoE family runs ``moe_apply`` in
 place of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
-per-layer 3-D banks. Other families come with ROADMAP A12,
-per-layer KV widths with A11 and paged state with A10.
+per-layer 3-D banks. Other families come with ROADMAP A12 and per-layer
+KV widths with A11.
+
+A paged state (one with a ``table``) takes the fused route by default
+(``paged_attn``): each layer appends straight to its pool and attends
+through the table. ``paged_attn=False`` takes the gather route (gather
+each layer's pages into the dense view, run the dense program, scatter
+the new row back), the parity oracle, on CPU tensors only.
 """
 from __future__ import annotations
 
@@ -31,8 +39,11 @@ import torch
 from repro_torch.core import bitpack
 from repro_torch.core.tensor_store import is_packed, tree_map_with_path
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models.attention import pool_row_index, scatter_pool_rows
 from repro_torch.models.config import ModelConfig
 
 
@@ -42,10 +53,45 @@ def layer_slice(tree: Dict, i: int) -> Dict:
         lambda _, leaf: leaf.layer(i) if is_packed(leaf) else leaf[i], tree)
 
 
+def _cpu_only(t: torch.Tensor, name: str) -> None:
+    if t.is_cuda:
+        raise NotImplementedError(
+            f"{name}: the gather route runs on the CPU only; on the card "
+            "paged decode takes the fused route (paged_attn=True)")
+
+
+def gather_kv_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The per-sequence cache view of one layer's pool (P+1, page, Hkv,
+    W) through ``table`` (B, max_pages): (B, max_pages*page, Hkv, W).
+    Rows gathered through scrap entries lie at or past each sequence's
+    length, where attention masks them. The gather route's materialized
+    copy, on CPU tensors only."""
+    _cpu_only(pool, "gather_kv_pages")
+    kops.record_dispatch("gather_kv_pages", "materialized",
+                         shape=tuple(pool.shape))
+    return kref.gather_pages_ref(pool, table)
+
+
+def scatter_kv_row(pool: torch.Tensor, view: torch.Tensor,
+                   table: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Write the row the dense program appended to ``view`` at
+    ``lens[b]`` back to its physical page of ``pool``, in place; lengths
+    past the view clamp to its last row (the scrap page for an idle
+    slot). CPU tensors only."""
+    _cpu_only(pool, "scatter_kv_row")
+    pos = lens.long().clamp(0, view.shape[1] - 1)
+    scatter_pool_rows(pool, view[torch.arange(view.shape[0]), pos],
+                      pool_row_index(pool.shape[1], table, pos))
+    return pool
+
+
 @dataclasses.dataclass
 class LM:
     cfg: ModelConfig
     device: Optional[Union[str, torch.device]] = None
+    # paged states: attend through the table (True) or take the gather
+    # route (False, the CPU parity oracle); no effect on dense states
+    paged_attn: bool = True
     # (params, per-layer views) of the last parameter tree decoded from
     _views: Optional[Tuple[Dict, List[Dict]]] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
@@ -93,25 +139,45 @@ class LM:
         return L.unembed(x, head, cfg.tie_embeddings)
 
     # --------------------------------------------------------------- decode
+    def _kv_buffers(self, rows: Tuple[int, ...]) -> Dict:
+        """Zeroed stacked K and V buffers of (L, *rows, Hkv, W): int32
+        words when the KV packs, else (..., Hkv, D) in the compute
+        dtype."""
+        cfg = self.cfg
+        hd, bits = cfg.resolved_head_dim, cfg.compression.kv_bits
+        shape = (cfg.n_layers, *rows, cfg.n_kv_heads,
+                 bitpack.packed_group_words(hd, bits) if bits else hd)
+        dt = torch.int32 if bits else cfg.compute_dtype
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name in ("k", "v")}
+
     def init_decode_state(self, batch_size: int, seq_len: int) -> Dict:
         """Zeroed decode state: ``len`` (B,) int32 and the stacked cache
-        ``kv`` {k, v} of (L, B, S, Hkv, W) int32 words when the KV packs,
-        else (L, B, S, Hkv, D) in the compute dtype."""
-        cfg = self.cfg
-        hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
-        bits = cfg.compression.kv_bits
-        if bits:
-            shape = (cfg.n_layers, batch_size, seq_len, hkv,
-                     bitpack.packed_group_words(hd, bits))
-            dt = torch.int32
-        else:
-            shape = (cfg.n_layers, batch_size, seq_len, hkv, hd)
-            dt = cfg.compute_dtype
+        ``kv`` {k, v} of (L, B, S, Hkv, W)."""
         return {
             "len": torch.zeros((batch_size,), dtype=torch.int32,
                                device=self.device),
-            "kv": {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                   "v": torch.zeros(shape, dtype=dt, device=self.device)},
+            "kv": self._kv_buffers((batch_size, seq_len)),
+        }
+
+    def init_paged_decode_state(self, batch_size: int, seq_len: int,
+                                page_size: int, n_pages: int) -> Dict:
+        """Zeroed paged decode state: ``len`` (B,) int32, the page
+        ``table`` (B, seq_len // page_size) int32, and the stacked pools
+        ``kv`` {k, v} of (L, n_pages + 1, page_size, Hkv, W); page 0 is
+        the scrap page, the target of every unallocated table entry.
+        ``page_size`` must divide ``seq_len``, so the pages a table row
+        names span the dense cache's S rows."""
+        if seq_len % page_size:
+            raise ValueError(
+                f"kv_page_size {page_size} must divide max_seq_len "
+                f"{seq_len} so gathered pages keep the dense cache shape")
+        return {
+            "len": torch.zeros((batch_size,), dtype=torch.int32,
+                               device=self.device),
+            "table": torch.zeros((batch_size, seq_len // page_size),
+                                 dtype=torch.int32, device=self.device),
+            "kv": self._kv_buffers((n_pages + 1, page_size)),
         }
 
     def layer_params(self, params: Dict) -> List[Dict]:
@@ -135,14 +201,28 @@ class LM:
     def _hidden(self, params, state: Dict,
                 tokens: torch.Tensor) -> torch.Tensor:
         """The decode body: embed, every layer (appending this token's KV
-        row at ``len``), the final hidden state (B, 1, d)."""
+        row at ``len``), the final hidden state (B, 1, d). A paged state
+        takes the fused route or, without ``paged_attn``, the gather
+        route."""
         cfg = self.cfg
         x = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)
-        positions = state["len"][:, None]
-        kv = state["kv"]
+        lens = state["len"]
+        positions = lens[:, None]
+        kv, table = state["kv"], state.get("table")
         for i, lp in enumerate(self.layer_params(params)):
-            st = {"k": kv["k"][i], "v": kv["v"][i], "len": state["len"]}
-            x, _ = B.attention_decode(lp["attn"], x, cfg, st, positions)
+            layer_kv = {"k": kv["k"][i], "v": kv["v"][i]}
+            if table is None:
+                x, _ = B.attention_decode(lp["attn"], x, cfg,
+                                          dict(layer_kv, len=lens), positions)
+            elif self.paged_attn:
+                x, _ = B.attention_decode_paged(lp["attn"], x, cfg, layer_kv,
+                                                table, lens, positions)
+            else:
+                st = {"k": gather_kv_pages(layer_kv["k"], table),
+                      "v": gather_kv_pages(layer_kv["v"], table), "len": lens}
+                x, st = B.attention_decode(lp["attn"], x, cfg, st, positions)
+                for name in ("k", "v"):
+                    scatter_kv_row(layer_kv[name], st[name], table, lens)
             if cfg.family == "moe":
                 x = B.moe_apply(lp["moe"], x, cfg)
             else:

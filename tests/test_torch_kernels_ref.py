@@ -1,11 +1,12 @@
-"""The port's four kernels: plain versions against the JAX oracles, and
-(on a card) the CUDA kernels against the plain versions.
+"""The port's kernels: plain versions against the JAX oracles, and (on a
+card) the CUDA kernels against the plain versions.
 
 The ``ref_*`` tests import the reference lazily, so the ``cuda`` tests of
 this file also run on a machine without JAX. The ``cuda`` tests decide
 inside a fixture whether there is a card and skip without one.
-Tolerances: ``pack`` and ``take_rows`` are bit-exact; ``packed_matmul``
-and ``kv_decode`` differ from their oracles only in summation order
+Tolerances: ``pack`` and ``take_rows`` are bit-exact; ``packed_matmul``,
+``kv_decode`` and ``paged_attention`` differ from their oracles only in
+summation order
 (rtol = atol = 1e-5 in f32 on the CPU); on the card, bf16 outputs may
 round one bf16 ulp apart from the f32 result.
 """
@@ -176,7 +177,8 @@ def test_ref_kv_decode(jref, bits):
 def test_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never runs the plain version: a CPU tensor is an
     error there (``ops`` sends CPU tensors to ``ref`` itself)."""
-    from repro_torch.kernels import kv_decode, pack, packed_matmul, take
+    from repro_torch.kernels import (kv_decode, pack, packed_matmul,
+                                     paged_attention, take)
     x = torch.zeros(2, 32)
     w = torch.zeros(32, 16, dtype=torch.int32)
     cache = torch.zeros(1, 4, 1, 16, dtype=torch.int32)
@@ -190,6 +192,11 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kv_decode.kv_decode(torch.zeros(1, 2, 32), cache, cache,
                             torch.ones(1, dtype=torch.int32), 16, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.paged_attention(
+            torch.zeros(1, 2, 32), cache, cache,
+            torch.zeros(1, 1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), 16, 32)
     assert ops.launch_counts() == before
 
 
@@ -346,6 +353,116 @@ def test_cuda_kv_decode(cuda, bits, dtype):
         assert not got[0].any()
 
 
+def _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype):
+    """Pools of ``bits``-wide words (bf16/f32 rows when 0) with shuffled
+    page ids, entries past each length on the scrap page 0, which holds
+    large finite poison; slots 0 and 1 share their first page."""
+    mp = max(1, -(-max(lens) // page))
+    n_pages = 1 + b * mp
+    rows = rng.standard_normal((2, n_pages, page, hkv * d)).astype(np.float32)
+    rows[:, 0] = 10.0
+    pools = [torch.from_numpy(r) for r in rows]
+    if bits:
+        pools = [ref.pack_ref(p, bits) for p in pools]
+    pools = [p.reshape(n_pages, page, hkv, -1) for p in pools]
+    if not bits:
+        pools = [p.to(dtype) for p in pools]
+    table = rng.permutation(np.arange(1, n_pages))[: b * mp].astype(
+        np.int32).reshape(b, mp)
+    table[1, 0] = table[0, 0]
+    for i, ln in enumerate(lens):
+        table[i, -(-ln // page):] = 0
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    return (q.to(dtype), *pools, torch.from_numpy(table),
+            torch.tensor(lens, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bits", (0, 8, 16, 32))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention(cuda, bits, dtype):
+    """The paged kernel against its plain version; with packed pools
+    also bit for bit against ``kv_decode`` over the same rows laid out
+    dense (one body, one chunk plan)."""
+    rng = np.random.default_rng(500 + bits)
+    for b, h, hkv, d, page, lens in (
+            (4, 8, 2, 32, 4, [0, 1, 4, 13]),
+            (6, 32, 8, 128, 16, [0, 1, 15, 16, 17, 300]),
+            (3, 6, 1, 64, 8, [9, 1, 200])):
+        case = _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype)
+        q, kp, vp, table, kv_len = case
+        want = ref.paged_attention_ref(*case, bits, d)
+        before = ops.launch_counts()["paged_attention"]
+        got = ops.paged_attention(*(t.to(cuda) for t in case), bits, d)
+        assert ops.launch_counts()["paged_attention"] == before + 1
+        assert got.dtype == dtype
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=tol, atol=tol)
+        assert lens[0] or not got[0].any()        # kv_len == 0 gives zeros
+        if bits:
+            dense = ops.kv_decode(
+                q.to(cuda), ref.gather_pages_ref(kp, table).to(cuda),
+                ref.gather_pages_ref(vp, table).to(cuda), kv_len.to(cuda),
+                bits, d)
+            assert torch.equal(dense, got)
+
+
+def test_cuda_gather_route_raises(cuda):
+    """No CUDA path reaches the gather route: the gather and the scatter,
+    and a gather-route engine, all raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import gather_kv_pages, scatter_kv_row
+    from repro_torch.serving import ServeEngine
+    case = _paged_case(np.random.default_rng(0), 2, 4, 2, 32, 4, [3, 5], 16,
+                       torch.float32)
+    _, kp, _, table, kv_len = (t.to(cuda) for t in case)
+    with pytest.raises(NotImplementedError, match="fused"):
+        gather_kv_pages(kp, table)
+    with pytest.raises(NotImplementedError, match="fused"):
+        scatter_kv_row(kp, kp[None], table, kv_len)
+    with pytest.raises(NotImplementedError, match="CPU only"):
+        ServeEngine(get_config("qwen3_8b").reduced(), max_slots=2,
+                    paged=True, paged_attn=False, device=cuda)
+
+
+def test_cuda_paged_engine_matches_cpu(cuda):
+    """Reduced qwen3 paged engine on the card against the CPU with the
+    same packed weights, on a shared-prefix traffic: identical tokens and
+    pool counters; the card's path launches paged_attention, never
+    kv_decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compress import repack, uniform_plan
+    from repro_torch.core.tensor_store import tree_to
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("qwen3_8b").reduced()
+    params = LM(cfg, device=cuda).init()
+    params = repack(params, uniform_plan(params, 16))
+    rng = np.random.default_rng(2)
+    system = [int(t) for t in rng.integers(1, cfg.vocab_size, 16)]
+    prompts = [system + [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (1, 5, 9, 3, 7)]
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServeEngine(cfg, max_seq_len=48, max_slots=3, paged=True,
+                          kv_page_size=8, params=tree_to(params, dev),
+                          device=dev)
+        before = ops.launch_counts()
+        rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        stats = eng.run_until_drained()
+        after = ops.launch_counts()
+        res[dev.type] = ([eng.result(r) for r in rids],
+                         {k: stats[k] for k in ("prefix_hits", "cow_copies",
+                                                "table_uploads",
+                                                "kv_pages_read",
+                                                "pool_alloc_total")})
+        if dev.type == "cuda":
+            assert after["paged_attention"] > before["paged_attention"]
+            assert after["kv_decode"] == before["kv_decode"]
+    assert res["cuda"] == res["cpu"]
+    assert res["cpu"][1]["prefix_hits"] > 0
+
+
 @pytest.mark.parametrize("case", UNFUSED)
 def test_cuda_unfused_packed_weight_raises(cuda, case):
     """On the card a packed weight that no kernel takes is an error, not
@@ -378,7 +495,7 @@ def test_cuda_decode_step_matches_cpu(cuda):
         lc, st_c = lm_cpu.decode_step(params_cpu, st_c, toks)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     after = ops.launch_counts()
-    assert all(after[k] > before[k] for k in before
-               if k != "packed_matmul_batched")
-    # a dense model has no expert banks
-    assert after["packed_matmul_batched"] == before["packed_matmul_batched"]
+    unused = ("packed_matmul_batched", "paged_attention")
+    assert all(after[k] > before[k] for k in before if k not in unused)
+    # a dense model has no expert banks, a dense cache no page table
+    assert all(after[k] == before[k] for k in unused)

@@ -159,9 +159,13 @@ def test_configs_match_reference(arch):
 
 def test_unported_modes_raise():
     cfg = get_config("qwen3_8b").reduced()
-    for kw, item in (({"paged": True}, "A10"), ({"greedy": False}, "A11")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(cfg, max_slots=1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A11"):
+        ServeEngine(cfg, max_slots=1, device="cpu", greedy=False)
+    # paged KV mode is ported (tests/test_torch_paged.py): a page pool
+    # and a page table on the device
+    eng = ServeEngine(cfg, max_slots=1, device="cpu", paged=True)
+    assert eng.pool is not None and eng.pool.n_pages == eng.kv_pool_pages
+    assert tuple(eng.state["table"].shape) == (1, eng.max_seq_len // 16)
     # the family gate lets dense and moe through, and nothing else yet
     families = {get_config(a).family: a for a in ARCHS}
     assert {"ssm", "hybrid", "encdec", "vlm"} <= set(families)
