@@ -5,7 +5,7 @@
 
 Phases; any failure raises and the script exits non-zero:
 
-1. the card's name and power limit; build the six CUDA kernels from the
+1. the card's name and power limit; build the nine CUDA kernels from the
    sources in this checkout (nvcc, one process per source).
 2. each kernel against its plain PyTorch version on the card, at the
    shapes full-width serving gives it (qwen3-8b for the dense-path
@@ -16,7 +16,15 @@ Phases; any failure raises and the script exits non-zero:
    L2) and the bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s). paged_attention is also held bit for bit to kv_decode
    over the same rows laid out dense, and against poison on the scrap
-   page.
+   page. ``pack`` also against its library call at AF16,
+   ``x.to(torch.float16).view(torch.int32)``.
+2b. unpack, convert and truncate, which no model path calls, once: bit
+   for bit (tolerance 0, bit patterns compared, so -0.0 and NaN bits
+   count) against their plain versions at qwen3-8b's w_up leaf (4096,
+   12288) and a ragged (7, 1000), all 7 widths; convert also on every
+   code of AF8-AF20, truncate on the round-to-nearest-even ties of
+   AF8-AF16 and every 4099th f32 bit pattern; each timed at AF16 on
+   the w_up shape beside its bound, plain and library times.
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
    card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
@@ -29,7 +37,7 @@ Phases; any failure raises and the script exits non-zero:
    new tokens each, 8 slots, max_seq_len 64. For each drain the launch
    counters are zeroed just before it and read just after; every kernel
    of its path must have launched, exactly as often as the path's shape
-   says.
+   says, and unpack, convert and truncate not at all.
 4. cross-device parity, for each model at 2 layers in f32: decode_step
    on the card (kernels) against the CPU (plain versions) with the same
    packed weights; for deepseek also the number of routing choices
@@ -81,7 +89,14 @@ KERNELS = {
                               "src/repro/kernels/packed_matmul.py:279"),
     "paged_attention": ("src/repro_torch/kernels/csrc/kv_decode.cu",
                         "src/repro/kernels/paged_attention.py:111"),
+    "unpack": ("src/repro_torch/kernels/csrc/unpack.cu",
+               "src/repro/kernels/unpack.py:42"),
+    "convert": ("src/repro_torch/kernels/csrc/convert.cu",
+                "src/repro/kernels/convert.py:49"),
+    "truncate": ("src/repro_torch/kernels/csrc/convert.cu",
+                 "src/repro/kernels/convert.py:61"),
 }
+WIDTHS = (8, 12, 16, 20, 24, 28, 32)
 
 
 def log(msg: str) -> None:
@@ -246,16 +261,23 @@ def check_pack(torch, ops, ref, gen, cfg):
     (bit-exact); timed at AF16."""
     n = cfg.n_kv_heads * cfg.resolved_head_dim
     x = _special_rows(torch, gen, SLOTS, n)
-    for bits in (8, 12, 16, 20, 24, 28, 32):
+    for bits in WIDTHS:
         got = ops.pack(x, bits)
         want = ref.pack_ref(x, bits)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"pack AF{bits}: words differ")
     x16 = torch.randn((SLOTS, n), generator=gen, device="cuda")
+    # the library call: AF16 is IEEE half, and 32 half codes are 16
+    # little-endian words (NaN inputs would differ: no NaN here)
+    if not torch.equal(ops.pack(x16, 16),
+                       x16.to(torch.float16).view(torch.int32)):
+        raise AssertionError("pack AF16: the library call's words differ")
     calls_k = [lambda: ops.pack(x16, 16)]
     ms, issue = time_ms(torch, calls_k, 200)
     plain = time_ms(torch, [lambda: ref.pack_ref(x16, 16)], 20)[0]
+    lib = time_ms(torch, [lambda: x16.to(torch.float16).view(torch.int32)],
+                  200)[0]
     out_words = SLOTS * n // 32 * 16
     b_ms, b_by = bound(x16.numel() * 4 + out_words * 4, 0.0)
     calls = 2 * cfg.n_layers
@@ -264,7 +286,7 @@ def check_pack(torch, ops, ref, gen, cfg):
            "calls_per_tick": calls, "max_err": 0.0, "tol": 0.0,
            "kernel_ms": ms, "host_issue_ms": issue,
            "plain_ms": plain, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": None}
+           "bound_by": b_by, "library_ms": lib}
     log(json.dumps(rec))
     return tick_summary([rec])
 
@@ -579,6 +601,143 @@ def check_packed_matmul_batched(torch, ops, ref, gen, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: unpack, convert and truncate (on no model path)
+# ---------------------------------------------------------------------------
+
+def _expect_same_bits(torch, got, want, what: str) -> None:
+    """Equal dtype, shape and bit pattern (so -0.0 and NaN bits count)."""
+    view = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    if (got.dtype != want.dtype or got.shape != want.shape
+            or not torch.equal(got.view(view), want.view(view))):
+        raise AssertionError(f"{what}: bits differ from the plain version")
+
+
+def _midpoints(torch, ref, bits):
+    """The exact f32 midpoint between each pair of adjacent finite
+    same-sign codes of ``bits`` (a round-to-nearest-even tie) and its
+    two f32 neighbours, of both signs."""
+    from repro_torch.core.formats import FLOAT_FORMATS
+
+    fmt = FLOAT_FORMATS[bits]
+    top = fmt.max_biased_exp << fmt.mantissa_bits          # the +inf code
+    v = ref.convert_ref(torch.arange(top, dtype=torch.int32, device="cuda"),
+                        bits)
+    mid = (v[:-1] + v[1:]) * 0.5
+    x = torch.cat([mid, torch.nextafter(mid, torch.full_like(mid, math.inf)),
+                   torch.nextafter(mid, torch.full_like(mid, -math.inf))])
+    return torch.cat([x, -x])
+
+
+def check_unpack_convert(torch, ops, ref, gen, cfg):
+    """unpack, convert and truncate against their plain versions, bit for
+    bit, at ``cfg``'s w_up leaf (d_model, d_ff) and a ragged (7, 1000):
+    unpack to f32 and bf16 of ``_special_rows`` packed at all 7 widths;
+    convert of random 32-bit words (bits above the width set) at all 7
+    widths and of every AF8, AF12, AF16 and AF20 code; truncate of
+    ``_special_rows`` in f32 and bf16 at all 7 widths, of the ties of
+    AF8, AF12 and AF16 and their neighbours, and of every 4099th f32 bit
+    pattern (NaN payloads and f32 subnormals among them). Each is then
+    timed at AF16, one call on the w_up shape: the kernel, its plain
+    version, the bound (bytes) and a library call on f16 storage."""
+    t0 = time.perf_counter()
+    for rows, n in ((cfg.d_model, cfg.d_ff), (7, 1000)):
+        x = _special_rows(torch, gen, rows, n)
+        xb = x.to(torch.bfloat16)
+        words = torch.randint(0, 2**32, (rows, n), generator=gen,
+                              device="cuda").to(torch.int32)
+        for bits in WIDTHS:
+            p = ref.pack_ref(x, bits)
+            for dt in (torch.float32, torch.bfloat16):
+                _expect_same_bits(torch, ops.unpack(p, bits, n, dt),
+                                  ref.unpack_ref(p, bits, n, dt),
+                                  f"unpack AF{bits} {dt} ({rows}, {n})")
+            _expect_same_bits(torch, ops.convert(words, bits),
+                              ref.convert_ref(words, bits),
+                              f"convert AF{bits} ({rows}, {n})")
+            for src in (x, xb):
+                _expect_same_bits(torch, ops.truncate(src, bits),
+                                  ref.truncate_ref(src, bits),
+                                  f"truncate AF{bits} {src.dtype} "
+                                  f"({rows}, {n})")
+            del p
+        del x, xb, words
+    for bits in (8, 12, 16, 20):
+        codes = torch.arange(2**bits, dtype=torch.int32, device="cuda")
+        _expect_same_bits(torch, ops.convert(codes, bits),
+                          ref.convert_ref(codes, bits),
+                          f"convert AF{bits}, every code")
+    for bits in (8, 12, 16):
+        mids = _midpoints(torch, ref, bits)
+        _expect_same_bits(torch, ops.truncate(mids, bits),
+                          ref.truncate_ref(mids, bits),
+                          f"truncate AF{bits}, ties")
+    pattern = (torch.arange(0, 2**32, 4099, dtype=torch.int64, device="cuda")
+               .to(torch.int32).view(torch.float32))
+    for bits in WIDTHS:
+        _expect_same_bits(torch, ops.truncate(pattern, bits),
+                          ref.truncate_ref(pattern, bits),
+                          f"truncate AF{bits}, every 4099th f32 pattern")
+    torch.cuda.synchronize()
+    log(f"unpack/convert/truncate: bit-identical to the plain versions at "
+        f"all 7 widths, {pattern.numel()} f32 patterns included "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    rows, n = cfg.d_model, cfg.d_ff
+    x = torch.randn((rows, n), generator=gen, device="cuda")
+    p16 = ops.pack(x, 16)
+    code16 = ops.truncate(x, 16)
+    x_half = x.to(torch.float16)
+    # the library calls compute the same function at AF16 (IEEE half):
+    # the same bits on these NaN-free values
+    _expect_same_bits(torch, ops.unpack(p16, 16, n),
+                      p16.view(torch.float16).to(torch.float32),
+                      "unpack AF16 against the library call")
+    _expect_same_bits(torch, ops.convert(code16, 16), x_half.float(),
+                      "convert AF16 against the library call")
+    _expect_same_bits(torch, code16,
+                      x_half.view(torch.int16).to(torch.int32) & 0xFFFF,
+                      "truncate AF16 against the library call")
+    numel = rows * n
+    # (name, kernel call on an operand, plain call, library call on an
+    # operand, kernel operand, library operand, bytes the function moves)
+    cases = [("unpack", lambda r: ops.unpack(r, 16, n),
+              lambda: ref.unpack_ref(p16, 16, n),
+              lambda r: r.view(torch.float16).to(torch.float32), p16, p16,
+              p16.numel() * 4 + numel * 4),
+             ("convert", lambda r: ops.convert(r, 16),
+              lambda: ref.convert_ref(code16, 16),
+              lambda r: r.to(torch.float32), code16, x_half, numel * 8),
+             ("truncate", lambda r: ops.truncate(r, 16),
+              lambda: ref.truncate_ref(x, 16),
+              lambda r: r.to(torch.float16), x, x, numel * 8)]
+    out = {}
+    for name, kern, plain, lib, operand, lib_operand, nbytes in cases:
+        reps = [operand] + [operand.clone() for _ in range(
+            copies_for(operand.numel() * operand.element_size()) - 1)]
+        lib_reps = [lib_operand] + [lib_operand.clone() for _ in range(
+            copies_for(lib_operand.numel() * lib_operand.element_size())
+            - 1)]
+        ms, issue = time_ms(torch, [lambda r=r: kern(r) for r in reps], 20)
+        plain_ms = time_ms(torch, [plain], 3)[0]
+        lib_ms = time_ms(torch, [lambda r=r: lib(r) for r in lib_reps],
+                         20)[0]
+        b_ms, b_by = bound(nbytes, 0.0)
+        rec = {"kernel": name, "model": cfg.name, "shape": [rows, n],
+               "bits": 16, "widths_checked": "all 7", "calls_per_tick": 0,
+               "max_err": 0.0, "tol": 0.0, "kernel_ms": ms,
+               "host_issue_ms": issue, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        log(json.dumps(rec))
+        out[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, "calls_per_tick": 0}
+        del reps, lib_reps
+    del x, p16, code16, x_half
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve full-width qwen3-8b and deepseek-moe-16b
 # ---------------------------------------------------------------------------
 
@@ -599,7 +758,8 @@ def path_launches(cfg, ticks: int, positions: int, paged: bool = False):
             "kv_decode": 0 if paged else steps * L,
             "take_rows": steps,
             "packed_matmul_batched": steps * 3 * L if moe else 0,
-            "paged_attention": steps * L if paged else 0}
+            "paged_attention": steps * L if paged else 0,
+            "unpack": 0, "convert": 0, "truncate": 0}
 
 
 def shared_prefix_prompts(np, cfg):
@@ -900,6 +1060,7 @@ def main() -> int:
             f"{sum(k['ms'] for k in r.values()):.3f} ms, bound "
             f"{sum(k['bound_ms'] for k in r.values()):.3f} ms "
             + json.dumps({n: round(k["ms"], 4) for n, k in r.items()}))
+    standalone = check_unpack_convert(torch, ops, ref, gen, qwen)
     log(f"kernels checked ({time.perf_counter() - t_start:.0f} s so far)")
 
     launches = {}                    # drain -> kernel -> launches
@@ -925,25 +1086,31 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        # the numbers of the first model whose path runs the kernel
-        model = next(m for m, r in results.items() if name in r)
-        r = results[model][name]
+        if name in standalone:       # on no model path: one call's numbers
+            r, per_tick = standalone[name], {}
+            timing = (f"one call at ({qwen.d_model}, {qwen.d_ff}), "
+                      f"{qwen.name}'s w_up")
+        else:                        # the first model whose path runs it
+            model = next(m for m, rm in results.items() if name in rm)
+            r = results[model][name]
+            per_tick = {m: {k: rm[name][k] for k in (
+                "ms", "bound_ms", "plain_ms", "library_ms")}
+                for m, rm in results.items() if name in rm}
+            timing = (f"per decode tick of full-width {model}: "
+                      "calls_per_tick x one call")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(c[name] for c in launches.values()),
-            "max_abs_err": max(rm[name]["max_abs_err"]
-                               for rm in results.values() if name in rm),
+            "max_abs_err": max([r["max_abs_err"]] + [
+                rm[name]["max_abs_err"] for rm in results.values()
+                if name in rm]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "calls_per_tick": r["calls_per_tick"],
-            "timing": f"per decode tick of full-width {model}: "
-                      "calls_per_tick x one call",
+            "calls_per_tick": r["calls_per_tick"], "timing": timing,
             "launches_by_drain": {m: c[name] for m, c in launches.items()},
-            "ms_per_tick_by_model": {m: rm[name]["ms"]
-                                     for m, rm in results.items()
-                                     if name in rm}})
+            "per_tick_by_model": per_tick})
     log(f"total {time.perf_counter() - t_start:.0f} s; card {smi.stdout.strip()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` hold the hand-written kernels for ``sm_90a`` (built and
 bound by ``build``); ``pack``, ``take``, ``packed_matmul``,
-``packed_matmul_batched``, ``kv_decode`` and ``paged_attention`` are
-their wrappers; ``ref`` the plain versions; ``ops``
+``packed_matmul_batched``, ``kv_decode``, ``paged_attention``,
+``unpack`` and ``convert`` (``convert`` and ``truncate``) are their
+wrappers; ``ref`` the plain versions; ``ops``
 sends each call to one or the other by the device of its tensors.
 """

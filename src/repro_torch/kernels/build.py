@@ -34,6 +34,9 @@ _LL = ctypes.c_longlong
 # c_void_p; each returns the launch's cudaGetLastError() as an int)
 SIGNATURES: Dict[str, List] = {
     "rt_pack": [_P, _P, _LL, _I, _I, _P],
+    "rt_unpack": [_P, _P, _LL, _I, _I, _I, _P],
+    "rt_convert": [_P, _P, _LL, _I, _P],
+    "rt_truncate": [_P, _P, _LL, _I, _I, _P],
     "rt_take_rows": [_P, _P, _I, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P],
     "rt_packed_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],

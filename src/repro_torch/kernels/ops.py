@@ -1,9 +1,11 @@
 """Kernel dispatch by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to the plain PyTorch versions in ``kernels.ref``.
 
-Port of ``repro/kernels/ops.py`` for the kernels of the serving path.
-The op and path names of every ``DispatchRecord`` are the reference's.
-The reference records once per traced program; the port
+Port of ``repro/kernels/ops.py`` for the kernels of the serving path
+and the materialized ``unpack``, plus ``convert``/``truncate`` entries
+for the Value Converter and Truncator lanes (the reference calls those
+kernels directly). The op and path names of every ``DispatchRecord``
+are the reference's. The reference records once per traced program; the port
 runs eagerly, so it keeps each distinct record once (a dict used as an
 ordered set). The per-call count is the wrapper's launch counter. A CUDA
 tensor never falls back to the plain version: its wrapper launches the
@@ -15,6 +17,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import convert as _convert
 from repro_torch.kernels import kv_decode as _kv_decode
 from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import paged_attention as _paged_attention
@@ -22,6 +25,7 @@ from repro_torch.kernels import packed_matmul as _packed_matmul
 from repro_torch.kernels import packed_matmul_batched as _packed_matmul_batched
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import take as _take
+from repro_torch.kernels import unpack as _unpack
 
 
 class DispatchRecord(NamedTuple):
@@ -60,6 +64,34 @@ def pack(x: torch.Tensor, bits: int) -> torch.Tensor:
     if x.is_cuda:
         return _pack.pack(x.float().contiguous(), bits)
     return _ref.pack_ref(x, bits)
+
+
+def unpack(packed: torch.Tensor, bits: int, n: int,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Materialized decode of packed words (..., ceil(n/32)*bits) to
+    (..., n) floats, any rank (the reference's ``ops.unpack`` sends only
+    2-D payloads to its kernel)."""
+    record_dispatch("unpack", "materialized",
+                    shape=tuple(packed.shape[:-1]) + (n,), bits=bits)
+    if packed.is_cuda:
+        return _unpack.unpack(packed.contiguous(), bits, n, out_dtype)
+    return _ref.unpack_ref(packed, bits, n, out_dtype)
+
+
+def convert(code: torch.Tensor, bits: int) -> torch.Tensor:
+    """Code lanes -> f32 lanes (the Value Converter); no record, as in
+    the reference."""
+    if code.is_cuda:
+        return _convert.convert(code.contiguous(), bits)
+    return _ref.convert_ref(code, bits)
+
+
+def truncate(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """f32 (or bf16, widened exactly) lanes -> code lanes (the Value
+    Truncator); no record, as in the reference."""
+    if x.is_cuda:
+        return _convert.truncate(x.contiguous(), bits)
+    return _ref.truncate_ref(x, bits)
 
 
 def take_rows(packed: torch.Tensor, indices: torch.Tensor, bits: int, n: int,
@@ -130,17 +162,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                     d)
 
 
-_KERNELS = {"packed_matmul": _packed_matmul, "pack": _pack,
-            "kv_decode": _kv_decode, "take_rows": _take,
-            "packed_matmul_batched": _packed_matmul_batched,
-            "paged_attention": _paged_attention}
+_KERNELS = {"packed_matmul": _packed_matmul.launches, "pack": _pack.launches,
+            "kv_decode": _kv_decode.launches, "take_rows": _take.launches,
+            "packed_matmul_batched": _packed_matmul_batched.launches,
+            "paged_attention": _paged_attention.launches,
+            "unpack": _unpack.launches,
+            "convert": _convert.convert_launches,
+            "truncate": _convert.truncate_launches}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {name: mod.launches.n for name, mod in _KERNELS.items()}
+    return {name: count.n for name, count in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches.n = 0
+    for count in _KERNELS.values():
+        count.n = 0

@@ -12,14 +12,26 @@ from typing import Optional
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.core.formats import FLOAT_FORMATS, decode_float, decode_int, encode_float
+from repro_torch.core.formats import (FLOAT_FORMATS, decode_float, decode_int,
+                                      encode_float, f32_to_bits)
+
+
+def _to_out(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """f32 -> ``out_dtype``, rounding to nearest even. A NaN becomes the
+    bf16 NaN the reference writes (its sign | 0x7FC0); torch's own
+    conversion writes other bits, and not the same on host and card."""
+    if out_dtype != torch.bfloat16:
+        return x.to(out_dtype)
+    nan = (((f32_to_bits(x) >> 16) & 0x8000) | 0x7FC0).to(torch.int16)
+    return torch.where(torch.isnan(x), nan.view(torch.bfloat16),
+                       x.to(torch.bfloat16))
 
 
 def unpack_ref(packed: torch.Tensor, bits: int, n: int,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Value Extractor + Converter: packed words -> floats (last axis n)."""
     codes = bitpack.unpack_groups(packed, bits, n)
-    return decode_float(codes, FLOAT_FORMATS[bits]).to(out_dtype)
+    return _to_out(decode_float(codes, FLOAT_FORMATS[bits]), out_dtype)
 
 
 def take_rows_ref(packed: torch.Tensor, indices: torch.Tensor, bits: int,
@@ -40,6 +52,16 @@ def pack_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Value Truncator: floats -> packed words along the last axis."""
     return bitpack.pack_groups(encode_float(x.float(), FLOAT_FORMATS[bits]),
                                bits)
+
+
+def convert_ref(code: torch.Tensor, bits: int) -> torch.Tensor:
+    """Value Converter: one narrow-float code lane -> f32 lane."""
+    return decode_float(code, FLOAT_FORMATS[bits])
+
+
+def truncate_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Truncation step of the Value Truncator: f32 lane -> code lane."""
+    return encode_float(x.float(), FLOAT_FORMATS[bits])
 
 
 def packed_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, bits: int,

@@ -177,8 +177,8 @@ def test_ref_kv_decode(jref, bits):
 def test_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never runs the plain version: a CPU tensor is an
     error there (``ops`` sends CPU tensors to ``ref`` itself)."""
-    from repro_torch.kernels import (kv_decode, pack, packed_matmul,
-                                     paged_attention, take)
+    from repro_torch.kernels import (convert, kv_decode, pack, packed_matmul,
+                                     paged_attention, take, unpack)
     x = torch.zeros(2, 32)
     w = torch.zeros(32, 16, dtype=torch.int32)
     cache = torch.zeros(1, 4, 1, 16, dtype=torch.int32)
@@ -197,6 +197,12 @@ def test_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 2, 32), cache, cache,
             torch.zeros(1, 1, dtype=torch.int32),
             torch.ones(1, dtype=torch.int32), 16, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        unpack.unpack(w, 16, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        convert.convert(w, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        convert.truncate(x, 16)
     assert ops.launch_counts() == before
 
 
@@ -495,7 +501,9 @@ def test_cuda_decode_step_matches_cpu(cuda):
         lc, st_c = lm_cpu.decode_step(params_cpu, st_c, toks)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     after = ops.launch_counts()
-    unused = ("packed_matmul_batched", "paged_attention")
+    unused = ("packed_matmul_batched", "paged_attention", "unpack",
+              "convert", "truncate")
     assert all(after[k] > before[k] for k in before if k not in unused)
-    # a dense model has no expert banks, a dense cache no page table
+    # a dense model has no expert banks, a dense cache no page table, and
+    # no model path calls unpack, convert or truncate
     assert all(after[k] == before[k] for k in unused)
