@@ -6,7 +6,11 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit; build the nine CUDA kernels from the
-   sources in this checkout (nvcc, one process per source).
+   sources in this checkout (nvcc, one process per source); the
+   ``-Xptxas -v`` report's registers, static shared memory and spills,
+   over all kernels and for ``kvd_partial`` (kv_decode and
+   paged_attention's body) alone, with the dynamic shared memory a
+   block of it takes at the phase-2 shapes.
 2. each kernel against its plain PyTorch version on the card, at the
    shapes full-width serving gives it (qwen3-8b for the dense-path
    kernels and paged_attention, deepseek-moe-16b's expert banks for
@@ -14,7 +18,9 @@ Phases; any failure raises and the script exits non-zero:
    the stated tolerance; kernel, plain and library-call times (CUDA
    events, operands rotated through enough copies to defeat the 50 MB
    L2) and the bound (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s). paged_attention is also held bit for bit to kv_decode
+   67 TFLOP/s). kv_decode is also held to its plain version on AF8 and
+   AF32 caches of qwen3-8b's tick shape (checked, not timed: no tick
+   runs them). paged_attention is also held bit for bit to kv_decode
    over the same rows laid out dense, and against poison on the scrap
    page. ``pack`` also against its library call at AF16,
    ``x.to(torch.float16).view(torch.int32)``.
@@ -294,23 +300,33 @@ def check_pack(torch, ops, ref, gen, cfg):
 def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
     """q (slots, heads, head_dim) bf16 against an AF16 cache of ``seq``
     rows (the drain's max_seq_len), mixed lengths including 0 and one
-    past S."""
+    past S; timed there. For qwen3-8b also AF8 and AF32 caches of the
+    same shape, checked only (no tick runs them)."""
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     kv_len = torch.tensor([0, 1, 7, seq // 4, seq * 25 // 64, seq * 25 // 32,
                            seq, seq + 3], dtype=torch.int32, device="cuda")
     q = torch.randn((SLOTS, h, d), generator=gen,
                     device="cuda").to(torch.bfloat16)
     kv_shape = (SLOTS, seq, hkv, d)
-    kp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"), 16)
-    vp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"), 16)
-    got = ops.kv_decode(q, kp, vp, kv_len, 16, d)
-    want = ref.kv_decode_ref(q, kp, vp, 16, d, kv_len)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = BF16_TOL * want.float().abs().max().item() + 1e-3
-    if err > tol or got[0].any().item():
-        raise AssertionError(f"kv_decode: max err {err} > tol {tol}, or "
-                             "kv_len == 0 not zero")
+    checked = []
+    for bits in ((8, 32, 16) if cfg.family != "moe" else (16,)):
+        kp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"),
+                      bits)
+        vp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"),
+                      bits)
+        got = ops.kv_decode(q, kp, vp, kv_len, bits, d)
+        want = ref.kv_decode_ref(q, kp, vp, bits, d, kv_len)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = BF16_TOL * want.float().abs().max().item() + 1e-3
+        if err > tol or got[0].any().item():
+            raise AssertionError(f"kv_decode AF{bits}: max err {err} > tol "
+                                 f"{tol}, or kv_len == 0 not zero")
+        if bits != 16:
+            log(json.dumps({"kernel": "kv_decode", "model": cfg.name,
+                            "bits": bits, "q": list(q.shape), "S": seq,
+                            "max_err": err, "tol": tol, "checked_only": True}))
+            checked.append({"max_err": err, "calls_per_tick": 0})
     cache_bytes = kp.numel() * 4 * 2
     reps = [(kp, vp)] + [(kp.clone(), vp.clone())
                          for _ in range(copies_for(cache_bytes) - 1)]
@@ -341,7 +357,7 @@ def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
            "host_issue_ms": issue, "plain_ms": plain,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     log(json.dumps(rec))
-    return tick_summary([rec])
+    return tick_summary([rec] + checked)
 
 
 def _paged_layout(np, lens, page, max_pages, shared):
@@ -1003,12 +1019,43 @@ def paged_parity(torch, np, cfg):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def build_summary(log_text: str) -> str:
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log_text)]
-    spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores",
-                                            log_text))
-    return (f"{len(regs)} kernels, max {max(regs) if regs else 0} registers,"
-            f" {spills} bytes of spill stores")
+def build_summary(log_text: str, kernel: str = "") -> str:
+    """Registers, static shared memory and spills of the kernels the
+    ``-Xptxas -v`` report names, or of those whose name holds
+    ``kernel``."""
+    parts = re.split(r"Compiling entry function", log_text)[1:]
+    parts = [p for p in parts if kernel in p.split("\n", 1)[0]]
+    regs = [int(r) for p in parts
+            for r in re.findall(r"Used (\d+) registers", p)]
+    smem = [int(b) for p in parts for b in re.findall(r"(\d+) bytes smem", p)]
+    spills = sum(int(s) for p in parts
+                 for s in re.findall(r"(\d+) bytes spill stores", p))
+    return (f"{len(regs)} kernels, {min(regs) if regs else 0}-"
+            f"{max(regs) if regs else 0} registers, max static shared "
+            f"{max(smem) if smem else 0} bytes, {spills} bytes of spill "
+            "stores")
+
+
+def attend_smem(build, qwen, moe):
+    """Dynamic shared memory a block of the attention body takes at the
+    phase-2 shapes: qwen3-8b's tick and check (AF16), deepseek's tick."""
+    import torch
+
+    from repro_torch.core.bitpack import packed_group_words
+    from repro_torch.kernels.kv_decode import chunk_plan, tile_rows
+    sms = build.sm_count(torch.empty(0, device="cuda"))
+    out = {}
+    for name, cfg, seq in (("qwen3_8b tick", qwen, MAX_SEQ),
+                           ("qwen3_8b check", qwen, 4096),
+                           ("deepseek_moe_16b tick", moe, MOE_MAX_SEQ)):
+        d = cfg.resolved_head_dim
+        row = packed_group_words(d, 16) * 4
+        chunk, _ = chunk_plan(SLOTS * cfg.n_kv_heads, seq, sms)
+        tile = tile_rows(chunk, row)
+        out[name] = {"chunk": chunk, "tile": tile,
+                     "bytes": build.library().rt_attend_smem(
+                         cfg.n_heads // cfg.n_kv_heads, d, row, chunk, tile)}
+    return out
 
 
 def main() -> int:
@@ -1035,13 +1082,17 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
 
+    qwen, moe = get_config("qwen3_8b"), get_config("deepseek_moe_16b")
     t0 = time.perf_counter()
     lib_path = build.build()
     build.library()
+    build_log = (lib_path.parent / "build.log").read_text()
     log(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.parent.name}); "
-        + build_summary((lib_path.parent / "build.log").read_text()))
+        + build_summary(build_log))
+    log("kvd_partial (kv_decode and paged_attention's body): "
+        + build_summary(build_log, "kvd_partial") + "; dynamic shared "
+        + json.dumps(attend_smem(build, qwen, moe)))
 
-    qwen, moe = get_config("qwen3_8b"), get_config("deepseek_moe_16b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}                     # model -> kernel -> numbers per tick
     for cfg, seq in ((qwen, MAX_SEQ), (moe, MOE_MAX_SEQ)):

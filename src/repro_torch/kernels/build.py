@@ -43,9 +43,10 @@ SIGNATURES: Dict[str, List] = {
     "rt_packed_matmul_batched": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P],
     "rt_kv_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _P],
+                     _I, _I, _I, _I, _I, _P],
     "rt_paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rt_attend_smem": [_I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -37,7 +37,10 @@ __device__ __forceinline__ uint32_t extract_code(const uint32_t* g, int j) {
   const int s = j * BITS;
   const int w0 = s >> 5, off = s & 31;
   uint32_t lo = g[w0] >> off;
-  if (off + BITS > 32) lo |= g[w0 + 1] << (32 - off);
+  // a width that divides 32 never straddles two words
+  if constexpr (32 % BITS != 0) {
+    if (off + BITS > 32) lo |= g[w0 + 1] << (32 - off);
+  }
   return lo & width_mask<BITS>();
 }
 
@@ -79,6 +82,16 @@ __device__ __forceinline__ float decode_float(uint32_t code) {
     }
     return __uint_as_float((sign << 31) | (e32 << 23) | m32);
   }
+}
+
+// Narrow float code -> f32 for arithmetic: decode_float's value for every
+// code that is not a NaN, and a NaN (payload not canonicalised) for one
+// that is. For sums and products, whose NaN results carry no payload of
+// their inputs, this is decode_float; AF16 is one hardware conversion.
+template <int BITS>
+__device__ __forceinline__ float decode_value(uint32_t code) {
+  if constexpr (BITS == 16) return __half2float(__ushort_as_half((unsigned short)code));
+  else return decode_float<BITS>(code);
 }
 
 // f32 -> narrow float code: round to nearest even, subnormals on

@@ -8,8 +8,9 @@ words of ``bits``-wide codes, or bf16/f32 rows (W = D) when ``bits`` is
 max_pages * page count as that; 0 gives zeros). Output (B, H, D) in q's
 dtype. The kernel is ``kv_decode``'s body with the row address looked up
 through the table; the split over positions is ``kv_decode``'s
-``chunk_plan`` at S = max_pages * page, so a paged call gives the bits
-of a dense call over the same rows.
+``chunk_plan`` and ``tile_rows`` at S = max_pages * page, so a paged
+call gives the bits of a dense call over the same rows. bf16 rows need
+an even head_dim (the kernel copies rows in 4-byte units).
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ import torch
 from repro_torch.core.bitpack import packed_group_words
 from repro_torch.core.formats import FLOAT_FORMATS
 from repro_torch.kernels.build import (LaunchCount, check, library, require,
-                                       sm_count, stream_ptr)
-from repro_torch.kernels.kv_decode import MAX_HEAD_DIM, chunk_plan, scratch
+                                       stream_ptr)
+from repro_torch.kernels.kv_decode import MAX_HEAD_DIM, plan, scratch
 
 launches = LaunchCount()
 
@@ -53,7 +54,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             f"{op}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, table "
             f"{tuple(table.shape)}, kv_len {tuple(kv_len.shape)} at {bits} "
             f"bits and d={d} do not fit (head_dim <= {MAX_HEAD_DIM})")
-    chunk, n_chunks = chunk_plan(b * hkv, max_pages * page, sm_count(q))
+    chunk, n_chunks, tile = plan(q, b * hkv, max_pages * page, h // hkv, d,
+                                 words * k_pool.element_size(), op)
     out = torch.empty_like(q)
     m_ws, l_ws, acc_ws = scratch(q, b * hkv, n_chunks, h // hkv, d)
     rc = library().rt_paged_attention(
@@ -61,7 +63,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         v_pool.data_ptr(), _KV_KIND[k_pool.dtype], table.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), m_ws.data_ptr(), l_ws.data_ptr(),
         acc_ws.data_ptr(), b, h, hkv, page, max_pages, pool_pages, d, words,
-        bits, chunk, n_chunks, stream_ptr(q))
+        bits, chunk, n_chunks, tile, stream_ptr(q))
     check(rc, op)
     launches.n += 1
     return out

@@ -262,6 +262,41 @@ def test_split_plans_cover_the_work():
         assert (n_chunks - 1) * chunk < s <= n_chunks * chunk
 
 
+# Card shapes (b, h, hkv, d, s) on which the attention body stages a
+# chunk over several shared-memory tiles, so its ring of two tiles turns
+# over: a long cache, the largest row (head_dim 256, 1 KB at AF32), and
+# 48 query heads per kv head.
+KV_RING_SHAPES = {"ring": (8, 32, 8, 128, 4096),
+                  "wide_row": (4, 16, 8, 256, 2048),
+                  "g48_ring": (34, 48, 1, 128, 4096)}
+# decode-tick shapes (pairs, s, head_dim) whose chunk is staged whole:
+# qwen3-8b at 8 slots, deepseek-moe-16b at 8 slots
+KV_TICK_SHAPES = {"qwen3_tick": (64, 256, 128), "deepseek_tick": (128, 64, 128)}
+
+
+@pytest.mark.parametrize("case", list(KV_RING_SHAPES) + list(KV_TICK_SHAPES))
+def test_tile_plans_stage_the_chunk(case):
+    """The attention body's staging plan: tiles are whole chunks at the
+    decode tick, and a ring of 32-aligned tiles within the staging budget
+    on the card tests' long shapes, at every float width."""
+    from repro_torch.kernels.kv_decode import (STAGE_BYTES, chunk_plan,
+                                               tile_rows)
+    if case in KV_RING_SHAPES:
+        b, _, hkv, d, s = KV_RING_SHAPES[case]
+        pairs = b * hkv
+    else:
+        pairs, s, d = KV_TICK_SHAPES[case]
+    chunk, _ = chunk_plan(pairs, s, 132)
+    for bits in WIDTHS:
+        row = bitpack.packed_group_words(d, bits) * 4
+        tile = tile_rows(chunk, row)
+        if case in KV_TICK_SHAPES and bits <= 16:
+            assert tile == chunk
+        elif case in KV_RING_SHAPES:
+            assert 32 <= tile < chunk and tile % 32 == 0
+            assert 4 * tile * (row + 16) <= STAGE_BYTES or tile == 32
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain versions (on a card only)
 # ---------------------------------------------------------------------------
@@ -336,43 +371,73 @@ def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
                                    rtol=tol, atol=tol)
 
 
+def _ring_lens(rng, b, s):
+    """Lengths 0, 1, s, s + 3, then random ones in [1, s]."""
+    lens = [0, 1, s, s + 3] + [int(n) for n in rng.integers(1, s + 1, b)]
+    return lens[:b]
+
+
+def _kv_ring_case(rng, b, h, hkv, d, s, bits, dtype, dev):
+    """q and a dense K, V cache of unit-normal rows packed at ``bits``,
+    made on the card; lengths from ``_ring_lens``."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+    kp, vp = (ref.pack_ref(torch.randn((b, s, hkv, d), generator=gen,
+                                       device=dev), bits) for _ in range(2))
+    kv_len = torch.tensor(_ring_lens(rng, b, s), dtype=torch.int32)
+    return q, kp, vp, kv_len
+
+
+@pytest.mark.parametrize("shapes", ["base"] + list(KV_RING_SHAPES))
 @pytest.mark.parametrize("bits", (8, 16, 32))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kv_decode(cuda, bits, dtype):
+def test_cuda_kv_decode(cuda, bits, dtype, shapes):
+    """The kernel against its plain version: small shapes, and the ring
+    shapes (a chunk staged over several tiles, the largest row, G 48)."""
     rng = np.random.default_rng(400 + bits)
-    for b, h, hkv, d, s in ((4, 8, 2, 32, 13), (4, 32, 8, 128, 300),
-                            (4, 6, 1, 64, 1), (4, 48, 1, 128, 40)):
-        q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(
-            np.float32)).to(dtype)
-        kp = torch.from_numpy(
-            _packed_w(rng, b * s * hkv, d, bits).reshape(b, s, hkv, -1))
-        vp = torch.from_numpy(
-            _packed_w(rng, b * s * hkv, d, bits).reshape(b, s, hkv, -1))
-        kv_len = torch.tensor([0, 1, s, s + 3], dtype=torch.int32)
-        want = ref.kv_decode_ref(q, kp, vp, bits, d, kv_len)
+    cases = (((4, 8, 2, 32, 13), (4, 32, 8, 128, 300), (4, 6, 1, 64, 1),
+              (4, 48, 1, 128, 40)) if shapes == "base"
+             else (KV_RING_SHAPES[shapes],))
+    for b, h, hkv, d, s in cases:
+        if shapes == "base":
+            q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(
+                np.float32)).to(dtype)
+            kp = torch.from_numpy(
+                _packed_w(rng, b * s * hkv, d, bits).reshape(b, s, hkv, -1))
+            vp = torch.from_numpy(
+                _packed_w(rng, b * s * hkv, d, bits).reshape(b, s, hkv, -1))
+            kv_len = torch.tensor([0, 1, s, s + 3], dtype=torch.int32)
+        else:
+            q, kp, vp, kv_len = _kv_ring_case(rng, b, h, hkv, d, s, bits,
+                                              dtype, cuda)
+        want = ref.kv_decode_ref(q, kp, vp, bits, d, kv_len.to(q.device))
         got = ops.kv_decode(q.to(cuda), kp.to(cuda), vp.to(cuda),
                             kv_len.to(cuda), bits, d)
         assert got.dtype == dtype
         tol = 1e-5 if dtype == torch.float32 else 1e-2
-        torch.testing.assert_close(got.float().cpu(), want.float(),
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                    rtol=tol, atol=tol)
         assert not got[0].any()
 
 
-def _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype):
+def _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype, dev=None):
     """Pools of ``bits``-wide words (bf16/f32 rows when 0) with shuffled
     page ids, entries past each length on the scrap page 0, which holds
-    large finite poison; slots 0 and 1 share their first page."""
+    large finite poison; slots 0 and 1 share their first page. With
+    ``dev`` the rows are made there (the large card cases)."""
     mp = max(1, -(-max(lens) // page))
     n_pages = 1 + b * mp
-    rows = rng.standard_normal((2, n_pages, page, hkv * d)).astype(np.float32)
+    shape = (2, n_pages, page, hkv * d)
+    if dev is None:
+        rows = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    else:
+        gen = torch.Generator(device=dev).manual_seed(
+            int(rng.integers(2**31)))
+        rows = torch.randn(shape, generator=gen, device=dev)
     rows[:, 0] = 10.0
-    pools = [torch.from_numpy(r) for r in rows]
-    if bits:
-        pools = [ref.pack_ref(p, bits) for p in pools]
-    pools = [p.reshape(n_pages, page, hkv, -1) for p in pools]
-    if not bits:
-        pools = [p.to(dtype) for p in pools]
+    pools = [r.reshape(n_pages, page, hkv, d) for r in rows]
+    # each head's row packed on its own (head_dim need not be 32-aligned)
+    pools = [ref.pack_ref(p, bits) if bits else p.to(dtype) for p in pools]
     table = rng.permutation(np.arange(1, n_pages))[: b * mp].astype(
         np.int32).reshape(b, mp)
     table[1, 0] = table[0, 0]
@@ -383,26 +448,44 @@ def _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype):
             torch.tensor(lens, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("shapes", ["base", "narrow_rows"]
+                         + list(KV_RING_SHAPES))
 @pytest.mark.parametrize("bits", (0, 8, 16, 32))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_paged_attention(cuda, bits, dtype):
+def test_cuda_paged_attention(cuda, bits, dtype, shapes):
     """The paged kernel against its plain version; with packed pools
     also bit for bit against ``kv_decode`` over the same rows laid out
-    dense (one body, one chunk plan)."""
+    dense (one body, one chunk and tile plan). ``narrow_rows``: plain
+    rows of 66-144 bytes, copied 8 or 4 bytes at a time; bf16 rows of
+    an odd head_dim (not a multiple of 4 bytes) raise. The ring shapes
+    run through pages of 16 rows."""
     rng = np.random.default_rng(500 + bits)
-    for b, h, hkv, d, page, lens in (
-            (4, 8, 2, 32, 4, [0, 1, 4, 13]),
-            (6, 32, 8, 128, 16, [0, 1, 15, 16, 17, 300]),
-            (3, 6, 1, 64, 8, [9, 1, 200])):
-        case = _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype)
+    if shapes == "base":
+        cases = ((4, 8, 2, 32, 4, [0, 1, 4, 13]),
+                 (6, 32, 8, 128, 16, [0, 1, 15, 16, 17, 300]),
+                 (3, 6, 1, 64, 8, [9, 1, 200]))
+    elif shapes == "narrow_rows":
+        cases = tuple((3, 4, 2, d, 8, [0, 19, 40]) for d in (36, 34, 33))
+    else:
+        b, h, hkv, d, s = KV_RING_SHAPES[shapes]
+        cases = ((b, h, hkv, d, 16, _ring_lens(rng, b, s)),)
+    for b, h, hkv, d, page, lens in cases:
+        case = _paged_case(rng, b, h, hkv, d, page, lens, bits, dtype,
+                           None if shapes in ("base", "narrow_rows")
+                           else cuda)
         q, kp, vp, table, kv_len = case
-        want = ref.paged_attention_ref(*case, bits, d)
+        if bits == 0 and dtype == torch.bfloat16 and d % 2:
+            with pytest.raises(ValueError, match="4-byte"):
+                ops.paged_attention(*(t.to(cuda) for t in case), bits, d)
+            continue
+        want = ref.paged_attention_ref(*(t.to(kp.device) for t in case),
+                                       bits, d)
         before = ops.launch_counts()["paged_attention"]
         got = ops.paged_attention(*(t.to(cuda) for t in case), bits, d)
         assert ops.launch_counts()["paged_attention"] == before + 1
         assert got.dtype == dtype
         tol = 1e-5 if dtype == torch.float32 else 1e-2
-        torch.testing.assert_close(got.float().cpu(), want.float(),
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
                                    rtol=tol, atol=tol)
         assert lens[0] or not got[0].any()        # kv_len == 0 gives zeros
         if bits:
