@@ -10,7 +10,10 @@ Phases; any failure raises and the script exits non-zero:
    ``-Xptxas -v`` report's registers, static shared memory and spills,
    over all kernels and for ``kvd_partial`` (kv_decode and
    paged_attention's body) alone, with the dynamic shared memory a
-   block of it takes at the phase-2 shapes.
+   block of it takes at the phase-2 shapes; the same for
+   ``pmm_kernel`` and ``pmm_t_kernel`` (packed_matmul and
+   packed_matmul_batched's two orientations), with the normal
+   orientation's dynamic shared memory per width and x dtype.
 2. each kernel against its plain PyTorch version on the card, at the
    shapes full-width serving gives it (qwen3-8b for the dense-path
    kernels and paged_attention, deepseek-moe-16b's expert banks for
@@ -20,9 +23,11 @@ Phases; any failure raises and the script exits non-zero:
    L2) and the bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s). kv_decode is also held to its plain version on AF8 and
    AF32 caches of qwen3-8b's tick shape (checked, not timed: no tick
-   runs them). paged_attention is also held bit for bit to kv_decode
-   over the same rows laid out dense, and against poison on the scrap
-   page. ``pack`` also against its library call at AF16,
+   runs them). packed_matmul is also checked and timed at AF8 and AF12
+   on qwen3-8b's w_up shape (bf16 x; no tick runs them).
+   paged_attention is also held bit for bit to kv_decode over the same
+   rows laid out dense, and against poison on the scrap page. ``pack``
+   also against its library call at AF16,
    ``x.to(torch.float16).view(torch.int32)``.
 2b. unpack, convert and truncate, which no model path calls, once: bit
    for bit (tolerance 0, bit patterns compared, so -0.0 and NaN bits
@@ -181,39 +186,44 @@ def tick_summary(per_call):
 
 def check_packed_matmul(torch, ops, ref, gen, cfg):
     """Every 2-D product of a decode tick, M = slots, bf16 x (f32 for the
-    MoE router), AF16 W."""
+    MoE router), AF16 W; for qwen3-8b also f32 x, the tied-head
+    orientation, and AF8 and AF12 W on the w_up shape (no tick runs
+    them)."""
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     hq = cfg.n_heads * cfg.resolved_head_dim
     hkv = cfg.n_kv_heads * cfg.resolved_head_dim
     L = cfg.n_layers
-    # (K, N, calls per decode tick, transpose, x dtype)
+    bf, f32 = torch.bfloat16, torch.float32
+    # (K, N, calls per decode tick, transpose, x dtype, bits)
     if cfg.family == "moe":
         fs = cfg.moe_d_ff * cfg.n_shared_experts
-        cases = [(d, hq, 2 * L, False, torch.bfloat16),   # wq, wo
-                 (d, hkv, 2 * L, False, torch.bfloat16),  # wk, wv
-                 (d, cfg.n_experts, L, False, torch.float32),   # router
-                 (d, fs, 2 * L, False, torch.bfloat16),   # shared w_in, w_gate
-                 (fs, d, L, False, torch.bfloat16),       # shared w_out
-                 (d, v, 1, False, torch.bfloat16)]        # lm_head
+        cases = [(d, hq, 2 * L, False, bf, 16),           # wq, wo
+                 (d, hkv, 2 * L, False, bf, 16),          # wk, wv
+                 (d, cfg.n_experts, L, False, f32, 16),   # router
+                 (d, fs, 2 * L, False, bf, 16),           # shared w_in, w_gate
+                 (fs, d, L, False, bf, 16),               # shared w_out
+                 (d, v, 1, False, bf, 16)]                # lm_head
     else:
-        cases = [(d, hq, 2 * L, False, torch.bfloat16),   # wq, wo
-                 (d, hkv, 2 * L, False, torch.bfloat16),  # wk, wv
-                 (d, f, 2 * L, False, torch.bfloat16),    # w_in, w_gate
-                 (f, d, L, False, torch.bfloat16),        # w_out
-                 (d, v, 1, False, torch.bfloat16),        # lm_head
-                 (d, hkv, 0, False, torch.float32),       # f32 activations
-                 (d, d, 0, True, torch.bfloat16)]         # tied-head orientation
+        cases = [(d, hq, 2 * L, False, bf, 16),           # wq, wo
+                 (d, hkv, 2 * L, False, bf, 16),          # wk, wv
+                 (d, f, 2 * L, False, bf, 16),            # w_in, w_gate
+                 (f, d, L, False, bf, 16),                # w_out
+                 (d, v, 1, False, bf, 16),                # lm_head
+                 (d, hkv, 0, False, f32, 16),             # f32 activations
+                 (d, d, 0, True, bf, 16),                 # tied head
+                 (d, f, 0, False, bf, 8),                 # w_up at AF8
+                 (d, f, 0, False, bf, 12)]                # and at AF12
     per_call = []
-    for k, n, calls, transpose, xdt in cases:
+    for k, n, calls, transpose, xdt, bits in cases:
         wshape = (n, k) if transpose else (k, n)
         w = torch.randn(wshape, generator=gen, device="cuda") / math.sqrt(k)
-        wp = ops.pack(w, 16)
-        w_lib = (ref.unpack_ref(wp, 16, k if transpose else n)
+        wp = ops.pack(w, bits)
+        w_lib = (ref.unpack_ref(wp, bits, k if transpose else n)
                  .to(torch.bfloat16))
         del w
         x = torch.randn((SLOTS, k), generator=gen, device="cuda").to(xdt)
-        got = ops.packed_matmul(x, wp, 16, n, transpose)
-        want = ref.packed_matmul_ref(x, wp, 16, n, transpose)
+        got = ops.packed_matmul(x, wp, bits, n, transpose)
+        want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
         torch.cuda.synchronize()
         err = (got.float() - want).abs().max().item()
         scale = want.abs().max().item()
@@ -222,16 +232,16 @@ def check_packed_matmul(torch, ops, ref, gen, cfg):
         assert torch.isfinite(got).all().item()
         if err > tol:
             raise AssertionError(f"packed_matmul K={k} N={n} T={transpose} "
-                                 f"{xdt}: max err {err} > tol {tol}")
+                                 f"{xdt} AF{bits}: max err {err} > tol {tol}")
         wbytes = wp.numel() * 4
         reps = [wp] + [wp.clone() for _ in range(copies_for(wbytes) - 1)]
         libs = [w_lib] + [w_lib.clone() for _ in range(
             copies_for(w_lib.numel() * 2) - 1)]
-        calls_k = [lambda r=r: ops.packed_matmul(x, r, 16, n, transpose)
+        calls_k = [lambda r=r: ops.packed_matmul(x, r, bits, n, transpose)
                    for r in reps]
         ms, issue = time_ms(torch, calls_k, 50)
         plain = time_ms(torch, [lambda: ref.packed_matmul_ref(
-            x, wp, 16, n, transpose)], 3)[0]
+            x, wp, bits, n, transpose)], 3)[0]
         lib = time_ms(torch, [lambda r=r: torch.matmul(
             x.to(torch.bfloat16), r.t() if transpose else r) for r in libs],
             50)[0]
@@ -240,14 +250,20 @@ def check_packed_matmul(torch, ops, ref, gen, cfg):
                            2.0 * SLOTS * n * k)
         rec = {"kernel": "packed_matmul", "model": cfg.name, "K": k, "N": n,
                "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
-               "calls_per_tick": calls, "max_err": err, "tol": tol,
-               "kernel_ms": ms, "host_issue_ms": issue,
+               "bits": bits, "calls_per_tick": calls, "max_err": err,
+               "tol": tol, "kernel_ms": ms, "host_issue_ms": issue,
                "plain_ms": plain, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib}
         log(json.dumps(rec))
         per_call.append(rec)
         del reps, libs, wp, w_lib, got, want
         torch.cuda.empty_cache()
+    w_up = {r["bits"]: r["kernel_ms"] for r in per_call
+            if (r["K"], r["N"], r["transpose"]) == (d, f, False)
+            and r["x_dtype"] == "bfloat16"}
+    if len(w_up) > 1:
+        log(f"packed_matmul {cfg.name} w_up ({d}, {f}), bf16 x, us per call: "
+            + ", ".join(f"AF{b} {w_up[b] * 1e3:.2f}" for b in sorted(w_up)))
     return tick_summary(per_call)
 
 
@@ -1036,6 +1052,14 @@ def build_summary(log_text: str, kernel: str = "") -> str:
             "stores")
 
 
+def pmm_smem(build):
+    """Dynamic shared memory a block of packed_matmul's normal
+    orientation takes, per width and x dtype."""
+    lib = build.library()
+    return {f"AF{b} {dt}": lib.rt_pmm_smem(b, int(dt == "bf16"))
+            for b in WIDTHS for dt in ("bf16", "f32")}
+
+
 def attend_smem(build, qwen, moe):
     """Dynamic shared memory a block of the attention body takes at the
     phase-2 shapes: qwen3-8b's tick and check (AF16), deepseek's tick."""
@@ -1092,6 +1116,10 @@ def main() -> int:
     log("kvd_partial (kv_decode and paged_attention's body): "
         + build_summary(build_log, "kvd_partial") + "; dynamic shared "
         + json.dumps(attend_smem(build, qwen, moe)))
+    log("pmm_kernel (packed_matmul's normal orientation): "
+        + build_summary(build_log, "pmm_kernel") + "; pmm_t_kernel "
+        "(transposed): " + build_summary(build_log, "pmm_t_kernel")
+        + "; dynamic shared " + json.dumps(pmm_smem(build)))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}                     # model -> kernel -> numbers per tick

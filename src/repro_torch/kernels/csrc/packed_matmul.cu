@@ -7,145 +7,424 @@
 // kernels: the expert index shares blockIdx.z with the K split, and the
 // 2-D product is the batched one with a single expert.
 //
-// Bound on this card: bytes. On the serving path M is the slot count
-// (8), so each packed weight word is used by 8 rows only: ~2*8 flops per
-// decoded value against bits/8 bytes read. The packed weights stream
-// from device memory once per pass and the decoded weight never leaves
-// registers.
+// Bound on this card: bytes. On the serving path M is the slot count (8),
+// so each packed code is used by 8 rows only: at AF16 the card streams
+// about 7 codes a clock into each SM, each wanting 8 multiply-adds. On
+// the CUDA cores that is a decode, x loads and 8 FMAs per code, ~18
+// instructions, more than an SM issues in a clock (128), so a body of
+// FMAs stays well short of the byte bound; and the narrower the code, the
+// more codes a byte holds and the further it falls short.
 //
-// Design: a block owns BN = 256 output columns (one per thread), BM = 8
-// rows of x and one slice of K, and walks the slice in tiles of BK = 32
-// rows. Normal orientation (W (K, N) packed along N, the serving path):
-// each tile's packed words are loaded with 16-byte loads into shared
-// memory, and the next tile's loads are issued before the current tile
-// is consumed, so the loads stay in flight while the SM decodes; every
-// thread then decodes its column's 32 codes straight from shared memory
-// and runs 8 f32 FMAs per code against the x tile. Transposed
-// orientation (W (N, K) packed along K, the tied heads): a warp decodes
-// one weight row's group of 32 codes per step into a shared f32 tile,
-// read directly from device memory. No tensor cores and no TF32: the sum
-// is plain f32, as in the reference.
-// Grid size is the hard part at these shapes: wk/wv have N = 1024, only 4
-// column tiles for 132 SMs, so K is split into slices whose f32 partial
-// sums go to a workspace and a second pass adds them in a fixed order
-// (deterministic). Ragged M, N and K are masked in the kernel rather
-// than padded as the reference does. The MoE expert banks (E = 64 banks
-// of 2048 x 1408 at full deepseek-moe-16b width, M = capacity = 1 row
-// per expert) are a pure weight stream: 64 x 6 = 384 column tiles fill
-// the card without a K split, and each expert's words are read once.
+// Normal orientation (W (K, N) packed along N; every serving call):
+// - The multiply-adds run on the tensor cores. A block owns BN = 64
+//   output columns, BM = 8 rows of x and one slice of K. The operands are
+//   swapped so that the 8 rows of x are the mma's n: mma.m16n8k8 in TF32
+//   with A = decoded W (16 columns x 8 k), B = x^T (8 k x 8 rows) and f32
+//   accumulators. A warp covers the 64 columns with 4 mmas per 8 rows of
+//   K. Lane group g owns columns [8g, 8g + 8), whose codes are B / 4
+//   consecutive words of a row, so one shared load gives a lane its A
+//   elements (the mma's rows are ordered so, and the store undoes the
+//   order); the mma's k order is permuted so that one 32-bit shared load
+//   of x gives a lane both of its B elements. A decoded weight goes from
+//   shared memory into A registers and never reaches memory.
+// - It is exact where it runs: bf16 x and AF8, AF12 and AF16 values are
+//   exact in TF32, so every product is exact in f32 and only the order of
+//   the f32 sums differs from the plain version. AF16 decodes with one
+//   hardware conversion per code. AF8 and AF12 set their fields in an f16
+//   (its conversion to f32 normalises their subnormals) and leave out the
+//   power of two between the two biases, which the store puts back; a
+//   code with the all-ones exponent (inf, NaN) is detected per word and
+//   decoded exactly.
+// - f32 x, and AF20 to AF32, which TF32 does not hold, take f32 FMAs on
+//   the CUDA cores from the same ring: a lane owns two columns.
+// - A deep ring of cp.async copies. Each warp takes its own RS-row chunks
+//   of the block's slice and keeps its own ring of STAGES stages (the W
+//   words and the x elements of a chunk), so a warp waits only on its own
+//   copies and the loop has no block barrier: 8 warps x 3 stages in
+//   flight, 48 KB of weights per block at AF16. Rows are padded so that
+//   the A and B loads hit 32 distinct banks.
+// - One launch, no workspace. The blocks of a K split form one
+//   thread-block cluster (at most 8, the portable size); each block adds
+//   its warps' sums in warp order, then rank 0 adds the ranks' sums
+//   through distributed shared memory in rank (= split) order and stores.
+//   No atomics: a call's bits do not change between runs.
+// Grid: N / BN column tiles x M / BM row tiles x E * splits (split_plan
+// in kernels/packed_matmul.py cuts K until the grid has a block for
+// every SM, at most 8 ways). Ragged M, N and K are masked in the kernel.
+//
+// Transposed orientation (W (N, K) packed along K, the tied heads; on no
+// serving path yet): a warp decodes one weight row's group of 32 codes
+// per step into a shared f32 tile, read directly from device memory, and
+// a thread runs 8 FMAs per code for its column; it shares the cluster
+// epilogue.
+#include <cooperative_groups.h>
+
+#include <cstdint>
+#include <type_traits>
+
 #include "codec.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BN = 256;   // output columns per block = threads per block
-constexpr int BM = 8;     // rows of x per block
-constexpr int BK = 32;    // K tile
+constexpr int BN = 64;          // normal orientation: output columns per block
+constexpr int BM = 8;           // rows of x per block: the mma's n
+constexpr int WARPS = 8;        // warps per block
+constexpr int THREADS = 32 * WARPS;
+constexpr int RS = 16;          // rows a warp takes per ring stage: two mma k-steps
+constexpr int STAGES = 4;       // ring depth per warp
+constexpr int MAX_SPLITS = 8;   // K slices of one tile: the blocks of a cluster
+constexpr int BN_T = 256;       // transposed orientation: columns (= threads) per block
+constexpr int BK_T = 32;        // and its K tile
 
-// Writes a block's sums: to out (already offset to this expert), or to
-// workspace slice z = expert * splits + split when K is split.
-template <typename XT>
-__device__ __forceinline__ void store_out(XT* out, float* ws, const float* acc, int M, int N,
-                                          int m0, int n, int z, int splits) {
-  if (n >= N) return;
+// The tensor-core path: bf16 x and a width whose values TF32 holds.
+template <int B, typename XT>
+constexpr bool kMma = std::is_same<XT, __nv_bfloat16>::value && B <= 16;
+
+// The power of two that the tensor-core decode of AF8 and AF12 leaves out:
+// their fields read as an f16, whose bias is 15, not 3 or 7.
+template <int B>
+constexpr float kScale = B == 8 ? 4096.f : (B == 12 ? 256.f : 1.f);
+
+// A warp's ring, in 32-bit words: STAGES stages of RS tile rows (two
+// groups of 32 codes, WPR words, padded to S) and BM rows of RS elements
+// of x (padded to XS). S = WPR + 4 puts rows 2 apart 8 banks apart, and
+// XS = XW + 4 puts x rows 12 banks apart, so the mma loads are conflict
+// free. After the loop a warp's ring holds its sums, (BM, BN) f32.
+template <int B, typename XT>
+struct Ring {
+  static constexpr int WPR = 2 * B;
+  static constexpr int S = WPR + 4;
+  static constexpr int XW = RS * (int)sizeof(XT) / 4;
+  static constexpr int XS = XW + 4;
+  static constexpr int STAGE = RS * S + BM * XS;
+  static constexpr int WARP = STAGES * STAGE;
+  static constexpr int BYTES = 4 * WARPS * WARP;
+  static_assert(WARP >= BM * BN, "a warp's sums overlay its ring");
+};
+
+// Copies 16 bytes from global to shared memory asynchronously, or writes
+// 16 zero bytes and reads nothing when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copies of one stage: rows [k0, k0 + RS) of the tile's words
+// (zeros past the slice or the row) and the matching elements of x's BM
+// rows (zeros past M or the slice). x rows that are not 16-byte aligned
+// are copied element by element, synchronously.
+template <int B, typename XT>
+__device__ __forceinline__ void load_stage(uint32_t* st, const uint32_t* w, const XT* x, int k0,
+                                           int ke, int K, int M, int m0, int wwords, int wofs,
+                                           int x_vec, int lane) {
+  using R = Ring<B, XT>;
+  constexpr int VPR = R::WPR / 4;            // 16-byte vectors of a tile row
+  static_assert(RS * VPR % 32 == 0, "whole vectors per lane");
 #pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    const int m = m0 + i;
-    if (m >= M) break;
-    if (splits == 1) out[(long long)m * N + n] = rt::from_f32<XT>(acc[i]);
-    else ws[((long long)z * M + m) * N + n] = acc[i];
+  for (int i = 0; i < RS * VPR / 32; ++i) {
+    const int c = lane + 32 * i;
+    const int r = c / VPR, v = c % VPR;
+    const int k = k0 + r, word = wofs + 4 * v;
+    const bool ok = k < ke && word < wwords;
+    cp_async16(st + r * R::S + 4 * v, ok ? w + (long long)k * wwords + word : w, ok);
+  }
+  uint32_t* xs = st + RS * R::S;
+  if (x_vec) {
+    constexpr int XV = R::XW / 4;            // 16-byte vectors of an x row
+    constexpr int EV = 16 / (int)sizeof(XT);  // elements per vector
+    if (lane < BM * XV) {
+      const int mm = lane / XV, v = lane % XV;
+      const int m = m0 + mm, k = k0 + v * EV;
+      const bool ok = m < M && k < ke;
+      cp_async16(xs + mm * R::XS + 4 * v, ok ? x + (long long)m * K + k : x, ok);
+    }
+  } else {
+    constexpr int XE = R::XS * 4 / (int)sizeof(XT);
+    XT* xe = reinterpret_cast<XT*>(xs);
+    for (int c = lane; c < BM * RS; c += 32) {
+      const int mm = c / RS, kk = c % RS;
+      const int m = m0 + mm, k = k0 + kk;
+      xe[mm * XE + kk] = (m < M && k < ke) ? x[(long long)m * K + k] : rt::from_f32<XT>(0.f);
+    }
   }
 }
 
-// Loads one K tile of the normal orientation into registers: NV 16-byte
-// vectors of packed words per thread (zeros past the slice or the row)
-// and one element of x.
-template <int NV, int VPR, typename XT>
-__device__ __forceinline__ void fetch_tile(uint4 (&pre)[NV], float& xpre, const uint4* wv,
-                                           const XT* x, int k0, int ke, int K, int wwords,
-                                           int wofs, int xm, int xk, int M) {
+__device__ __forceinline__ void mma_tf32(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Two f16 lanes of a word -> two floats (the hardware conversion, exact).
+__device__ __forceinline__ float2 halves(uint32_t h) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+template <int U>
+__device__ __forceinline__ void load_unit(const uint32_t* p, uint32_t (&u)[U]) {
+  if constexpr (U == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
+  } else if constexpr (U == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    u[0] = v.x, u[1] = v.y;
+  } else {
 #pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int i = threadIdx.x + v * BN;
-    const int k = k0 + i / VPR;
-    const int word = wofs + (i % VPR) * 4;
-    pre[v] = (k < ke && word < wwords) ? __ldg(wv + (((long long)k * wwords + word) >> 2))
-                                       : make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < U; ++i) u[i] = p[i];
   }
-  const int k = k0 + xk;
-  xpre = (xm < M && k < ke) ? rt::to_f32(x[(long long)xm * K + k]) : 0.f;
+}
+
+// The 8 codes [8g, 8g + 8) of a tile row, held in the B / 4 words u, as
+// floats over kScale<B>. Returns true when one of them has the all-ones
+// exponent (inf or NaN), which this decode gets wrong for AF8 and AF12.
+template <int B>
+__device__ __forceinline__ bool decode8(const uint32_t (&u)[B / 4], float (&f)[8]) {
+  if constexpr (B == 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = halves(u[i]);
+      f[2 * i] = v.x, f[2 * i + 1] = v.y;
+    }
+    return false;
+  } else if constexpr (B == 8) {
+    // byte c of a word is a code: the f16 lanes of h02 take codes 0 and 2,
+    // those of h13 codes 1 and 3, each its sign at bit 15 and its exponent
+    // and mantissa at bits 6-12
+    uint32_t ok = 0xFFFFFFFFu;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t w = u[i];
+      const float2 a = halves(((w << 6) & 0x1FC01FC0u) | ((w << 8) & 0x80008000u));
+      const float2 b = halves(((w >> 2) & 0x1FC01FC0u) | (w & 0x80008000u));
+      f[4 * i] = a.x, f[4 * i + 1] = b.x, f[4 * i + 2] = a.y, f[4 * i + 3] = b.y;
+      // bit 7 of a byte clears exactly when its exponent is all ones
+      ok &= (w | 0x8F8F8F8Fu) + 0x01010101u;
+    }
+    return (ok & 0x80808080u) != 0x80808080u;
+  } else {
+    static_assert(B == 12, "the tensor-core path takes AF8, AF12 and AF16");
+    // code c at bits [12c, 12c + 12): p[i] holds codes 2i and 2i + 1 in
+    // its 16-bit lanes, then each lane takes its sign at bit 15 and its
+    // exponent and mantissa at bits 3-13
+    uint32_t p[4];
+    p[0] = (u[0] & 0xFFFu) | ((u[0] << 4) & 0x0FFF0000u);
+    p[1] = (__funnelshift_r(u[0], u[1], 24) & 0xFFFu) | ((u[1] << 12) & 0x0FFF0000u);
+    p[2] = ((u[1] >> 16) & 0xFFFu) | ((__funnelshift_r(u[1], u[2], 28) << 16) & 0x0FFF0000u);
+    p[3] = ((u[2] >> 8) & 0xFFFu) | ((u[2] >> 4) & 0x0FFF0000u);
+    uint32_t bad = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = halves(((p[i] << 4) & 0x80008000u) | ((p[i] << 3) & 0x3FF83FF8u));
+      f[2 * i] = v.x, f[2 * i + 1] = v.y;
+      // bit 12 of a lane sets exactly when its exponent is all ones
+      bad |= (p[i] | 0x087F087Fu) + 0x00010001u;
+    }
+    return (bad & 0x10001000u) != 0;
+  }
+}
+
+// decode8's values for any code, inf and NaN included (decode_float).
+template <int B>
+__device__ __forceinline__ void decode8_exact(const uint32_t (&u)[B / 4], float (&f)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = i * B, w0 = s >> 5, off = s & 31;
+    uint32_t code = u[w0] >> off;
+    if (off + B > 32) code |= u[w0 + 1] << (32 - off);
+    f[i] = rt::decode_value<B>(code & rt::width_mask<B>()) * (1.f / kScale<B>);
+  }
+}
+
+// One stage on the tensor cores. Lane (g, t) = (lane / 4, lane % 4); for
+// k-step q the mma's k column t is row 8q + 2t of the stage and column
+// t + 4 is row 8q + 2t + 1. Tile j's mma row g is column 8g + 2j of the
+// block, row g + 8 column 8g + 2j + 1; acc[4j..4j+3] are the mma's c0..c3.
+template <int B>
+__device__ __forceinline__ void mma_stage(const uint32_t* st, float (&acc)[16], int lane) {
+  using R = Ring<B, __nv_bfloat16>;
+  constexpr int U = B / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* xs = st + RS * R::S;
+#pragma unroll
+  for (int q = 0; q < RS / 8; ++q) {
+    const int r = 8 * q + 2 * t;
+    uint32_t u0[U], u1[U];
+    load_unit<U>(st + r * R::S + U * g, u0);
+    load_unit<U>(st + (r + 1) * R::S + U * g, u1);
+    float f0[8], f1[8];
+    const bool bad0 = decode8<B>(u0, f0);
+    const bool bad1 = decode8<B>(u1, f1);
+    if constexpr (B != 16) {
+      if (__any_sync(0xFFFFFFFFu, bad0 || bad1)) {
+        float e0[8], e1[8];
+        decode8_exact<B>(u0, e0);
+        decode8_exact<B>(u1, e1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          f0[i] = bad0 ? e0[i] : f0[i];
+          f1[i] = bad1 ? e1[i] : f1[i];
+        }
+      }
+    }
+    const uint32_t xp = xs[g * R::XS + 4 * q + t];   // x[g][r] and x[g][r + 1], bf16
+    const uint32_t b0 = xp << 16, b1 = xp & 0xFFFF0000u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma_tf32(acc + 4 * j, __float_as_uint(f0[2 * j]), __float_as_uint(f0[2 * j + 1]),
+               __float_as_uint(f1[2 * j]), __float_as_uint(f1[2 * j + 1]), b0, b1);
+  }
+}
+
+// One stage on the CUDA cores: lane owns columns lane and lane + 32 of the
+// block; acc[2m + c] is row m's sum for column lane + 32c.
+template <int B, typename XT>
+__device__ __forceinline__ void fma_stage(const uint32_t* st, float (&acc)[16], int lane) {
+  using R = Ring<B, XT>;
+  constexpr int XE = R::XS * 4 / (int)sizeof(XT);
+  const XT* xs = reinterpret_cast<const XT*>(st + RS * R::S);
+#pragma unroll 4
+  for (int r = 0; r < RS; ++r) {
+    const uint32_t* row = st + r * R::S;
+    const float w0 = rt::decode_value<B>(rt::extract_code<B>(row, lane));
+    const float w1 = rt::decode_value<B>(rt::extract_code<B>(row + B, lane));
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      const float xv = rt::to_f32(xs[m * XE + r]);
+      acc[2 * m] = fmaf(xv, w0, acc[2 * m]);
+      acc[2 * m + 1] = fmaf(xv, w1, acc[2 * m + 1]);
+    }
+  }
+}
+
+// Stores a block's sums (BM, COLS), times scale, in x's dtype: at once
+// without a K split; with one, the cluster's blocks (rank = split) meet
+// and rank 0 adds every rank's sums in rank order through distributed
+// shared memory. Every thread calls it once the sums are written and the
+// block has synchronised.
+template <typename XT, int COLS, int NT>
+__device__ __forceinline__ void finish(float* sums, XT* out, int M, int N, int m0, int n0,
+                                       int splits, float scale) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1) cluster.sync();    // every rank's sums are written
+  if (splits == 1 || cluster.block_rank() == 0) {
+    for (int o = threadIdx.x; o < BM * COLS; o += NT) {
+      const int m = m0 + o / COLS, n = n0 + o % COLS;
+      if (m >= M || n >= N) continue;
+      float s = sums[o];
+      for (int r = 1; r < splits; ++r) s += cluster.map_shared_rank(sums, r)[o];
+      out[(long long)m * N + n] = rt::from_f32<XT>(s * scale);
+    }
+  }
+  if (splits > 1) cluster.sync();    // rank 0 has read them
 }
 
 // Normal orientation: W (E, K, wwords) int32 words, packed along N;
-// x (E, M, K), out (E, M, N). wwords is a multiple of 4, so every
-// expert's rows stay 16-byte aligned.
+// x (E, M, K), out (E, M, N). W is 16-byte aligned and wwords a multiple
+// of 4, so every row of every expert is.
 template <int B, typename XT>
-__global__ void __launch_bounds__(BN)
+__global__ void __launch_bounds__(THREADS, 2)
 pmm_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb, XT* __restrict__ outb,
-           float* __restrict__ ws, int M, int N, int K, int wwords, int k_chunk, int splits) {
-  constexpr int WPR = (BN / 32) * B;      // words of one tile row
-  constexpr int VPR = WPR / 4;            // 16-byte vectors of one tile row
-  constexpr int NV = BK * VPR / BN;       // vectors each thread loads per tile
-  __shared__ __align__(16) uint32_t Wst[BK * WPR];
-  __shared__ __align__(16) float Xs[BK][BM];
-  const int tid = threadIdx.x;
+           int M, int N, int K, int wwords, int k_chunk, int splits, int x_vec) {
+  using R = Ring<B, XT>;
+  constexpr bool MMA = kMma<B, XT>;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* ring = smem + warp * R::WARP;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int split = blockIdx.z % splits;
   const long long e = blockIdx.z / splits;
   const XT* x = xb + e * M * K;
+  const uint32_t* w = wb + e * K * wwords;
   XT* out = outb + e * M * N;
   const int kb = split * k_chunk;
   const int ke = min(K, kb + k_chunk);
-  const int wofs = (n0 >> 5) * B;         // this tile's first word in a row
-  const uint4* wv = reinterpret_cast<const uint4*>(wb + e * K * wwords);
-  const int xm = m0 + tid % BM, xk = tid / BM;
+  const int wofs = blockIdx.x * R::WPR;       // the tile's first word in a row
+  // warp w takes the slice's RS-row chunks w, w + WARPS, w + 2 WARPS, ...
+  const int chunks = ke > kb ? (ke - kb + RS - 1) / RS : 0;
+  const int steps = chunks > warp ? (chunks - warp + WARPS - 1) / WARPS : 0;
 
-  uint4 pre[NV];
-  float xpre;
-
-  float acc[BM];
+  float acc[16];
 #pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
-  const uint32_t* grp = Wst + (tid >> 5) * B;   // this thread's group in a tile row
-  const int j = tid & 31;                       // and its code in the group
-
-  if (kb < ke) fetch_tile<NV, VPR>(pre, xpre, wv, x, kb, ke, K, wwords, wofs, xm, xk, M);
-  for (int k0 = kb; k0 < ke; k0 += BK) {
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  // stage i of this warp: rows [k0, k0 + RS) into slot i % STAGES
+  auto issue = [&](int i) {
+    load_stage<B, XT>(ring + (i % STAGES) * R::STAGE, w, x, kb + (warp + i * WARPS) * RS, ke,
+                      K, M, m0, wwords, wofs, x_vec, lane);
+  };
 #pragma unroll
-    for (int v = 0; v < NV; ++v) reinterpret_cast<uint4*>(Wst)[tid + v * BN] = pre[v];
-    Xs[xk][tid % BM] = xpre;
-    __syncthreads();
-    if (k0 + BK < ke)                           // in flight during the FMAs below
-      fetch_tile<NV, VPR>(pre, xpre, wv, x, k0 + BK, ke, K, wwords, wofs, xm, xk, M);
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float wval = rt::decode_float<B>(rt::extract_code<B>(grp + kk * WPR, j));
-      const float4 xa = *reinterpret_cast<const float4*>(&Xs[kk][0]);
-      const float4 xb = *reinterpret_cast<const float4*>(&Xs[kk][4]);
-      acc[0] = fmaf(xa.x, wval, acc[0]);
-      acc[1] = fmaf(xa.y, wval, acc[1]);
-      acc[2] = fmaf(xa.z, wval, acc[2]);
-      acc[3] = fmaf(xa.w, wval, acc[3]);
-      acc[4] = fmaf(xb.x, wval, acc[4]);
-      acc[5] = fmaf(xb.y, wval, acc[5]);
-      acc[6] = fmaf(xb.z, wval, acc[6]);
-      acc[7] = fmaf(xb.w, wval, acc[7]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_commit();
   }
-  store_out<XT>(out, ws, acc, M, N, m0, n0 + tid, blockIdx.z, splits);
+  for (int i = 0; i < steps; ++i) {
+    cp_wait<STAGES - 2>();             // stage i has landed
+    __syncwarp();                      // and every lane is done with stage i - 1
+    if (i + STAGES - 1 < steps) issue(i + STAGES - 1);
+    cp_commit();
+    const uint32_t* st = ring + (i % STAGES) * R::STAGE;
+    if constexpr (MMA) mma_stage<B>(st, acc, lane);
+    else fma_stage<B, XT>(st, acc, lane);
+  }
+  cp_wait<0>();
+  __syncwarp();
+
+  // this warp's sums (BM, BN) over its ring; then the block's, in warp
+  // order, over warp 0's
+  float* red = reinterpret_cast<float*>(ring);
+  if constexpr (MMA) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * g + 2 * j;
+      *reinterpret_cast<float2*>(red + 2 * t * BN + col) = make_float2(acc[4 * j], acc[4 * j + 2]);
+      *reinterpret_cast<float2*>(red + (2 * t + 1) * BN + col) =
+          make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      red[m * BN + lane] = acc[2 * m];
+      red[m * BN + lane + 32] = acc[2 * m + 1];
+    }
+  }
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(smem);
+  for (int o = threadIdx.x; o < BM * BN; o += THREADS) {
+    float s = sums[o];
+#pragma unroll
+    for (int v = 1; v < WARPS; ++v) s += sums[v * R::WARP + o];
+    sums[o] = s;
+  }
+  __syncthreads();
+  finish<XT, BN, THREADS>(sums, out, M, N, m0, n0, splits, MMA ? kScale<B> : 1.f);
 }
 
 // Transposed orientation: W (E, N, wwords) int32 words, packed along K;
 // x (E, M, K), out (E, M, N).
 template <int B, typename XT>
-__global__ void __launch_bounds__(BN)
+__global__ void __launch_bounds__(BN_T)
 pmm_t_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb,
-             XT* __restrict__ outb, float* __restrict__ ws, int M, int N, int K, int wwords,
-             int k_chunk, int splits) {
-  __shared__ float Ws[BK][BN + 1];
-  __shared__ float Xs[BM][BK];
+             XT* __restrict__ outb, int M, int N, int K, int wwords, int k_chunk, int splits) {
+  __shared__ float Ws[BK_T][BN_T + 1];
+  __shared__ float Xs[BM][BK_T];
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN_T, m0 = blockIdx.y * BM;
   const int split = blockIdx.z % splits;
   const long long e = blockIdx.z / splits;
   const XT* x = xb + e * M * K;
@@ -158,15 +437,15 @@ pmm_t_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb,
 #pragma unroll
   for (int i = 0; i < BM; ++i) acc[i] = 0.f;
 
-  for (int k0 = kb; k0 < ke; k0 += BK) {
+  for (int k0 = kb; k0 < ke; k0 += BK_T) {
     {
-      const int mm = tid / BK, kk = tid % BK;
+      const int mm = tid / BK_T, kk = tid % BK_T;
       const int m = m0 + mm, k = k0 + kk;
       Xs[mm][kk] = (m < M && k < ke) ? rt::to_f32(x[(long long)m * K + k]) : 0.f;
     }
     const int goff = (k0 >> 5) * B;
 #pragma unroll 4
-    for (int nn = wp; nn < BN; nn += BN / 32) {
+    for (int nn = wp; nn < BN_T; nn += BN_T / 32) {
       const int n = n0 + nn;
       float v = 0.f;
       if (n < N && k0 + lane < ke)
@@ -175,96 +454,127 @@ pmm_t_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb,
     }
     __syncthreads();
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < BK_T; ++kk) {
       const float wval = Ws[kk][tid];
 #pragma unroll
       for (int i = 0; i < BM; ++i) acc[i] = fmaf(Xs[i][kk], wval, acc[i]);
     }
     __syncthreads();
   }
-  store_out<XT>(out, ws, acc, M, N, m0, n0 + tid, blockIdx.z, splits);
+  float* sums = &Ws[0][0];            // (BM, BN_T), over the tile
+#pragma unroll
+  for (int i = 0; i < BM; ++i) sums[i * BN_T + tid] = acc[i];
+  __syncthreads();
+  finish<XT, BN_T, BN_T>(sums, out, M, N, m0, n0, splits, 1.f);
 }
 
-// Adds each expert's split-K partial sums in split order and converts to
-// x.dtype: ws (E, splits, M, N) -> out (E, M, N).
-template <typename XT>
-__global__ void pmm_reduce(const float* __restrict__ ws, XT* __restrict__ out, long long mn,
-                           long long total, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long e = i / mn, r = i - e * mn;
-  const float* p0 = ws + e * splits * mn + r;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += p0[(long long)p * mn];
-  out[i] = rt::from_f32<XT>(s);
+// Launches a kernel whose blocks along z form clusters of ``splits``.
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), dim3 grid, int threads, int smem, int splits,
+                   cudaStream_t s, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = splits;
+  cfg.attrs = &attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 template <int B, bool TRANS, typename XT>
-int launch(const void* x, const void* w, void* out, void* ws, int E, int M, int N, int K,
-           int wwords, int splits, int k_chunk, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E * splits);
+int launch(const void* x, const void* w, void* out, int E, int M, int N, int K, int wwords,
+           int splits, int k_chunk, cudaStream_t s) {
+  const unsigned rows = (unsigned)((M + BM - 1) / BM), z = (unsigned)(E * splits);
   if (TRANS) {
-    pmm_t_kernel<B, XT><<<grid, BN, 0, s>>>((const XT*)x, (const uint32_t*)w, (XT*)out,
-                                           (float*)ws, M, N, K, wwords, k_chunk, splits);
-  } else {
-    pmm_kernel<B, XT><<<grid, BN, 0, s>>>((const XT*)x, (const uint32_t*)w, (XT*)out,
-                                         (float*)ws, M, N, K, wwords, k_chunk, splits);
+    return launch_cluster(pmm_t_kernel<B, XT>, dim3((N + BN_T - 1) / BN_T, rows, z), BN_T, 0,
+                          splits, s, (const XT*)x, (const uint32_t*)w, (XT*)out, M, N, K,
+                          wwords, k_chunk, splits);
   }
-  if (splits > 1) {
-    const long long mn = (long long)M * N, total = mn * E;
-    pmm_reduce<XT><<<(unsigned)((total + 255) / 256), 256, 0, s>>>((const float*)ws, (XT*)out,
-                                                                    mn, total, splits);
+  if ((uintptr_t)w % 16 || wwords % 4) return (int)cudaErrorInvalidValue;
+  const int x_vec = (uintptr_t)x % 16 == 0 && (long long)K * (long long)sizeof(XT) % 16 == 0;
+  constexpr int smem = Ring<B, XT>::BYTES;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pmm_kernel<B, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  return 0;
+  return launch_cluster(pmm_kernel<B, XT>, dim3((N + BN - 1) / BN, rows, z), THREADS, smem,
+                        splits, s, (const XT*)x, (const uint32_t*)w, (XT*)out, M, N, K, wwords,
+                        k_chunk, splits, x_vec);
 }
 
 template <typename XT>
-int dispatch(const void* x, const void* w, void* out, void* ws, int E, int M, int N, int K,
-             int wwords, int bits, int transpose, int splits, int k_chunk, cudaStream_t s) {
+int dispatch(const void* x, const void* w, void* out, int E, int M, int N, int K, int wwords,
+             int bits, int transpose, int splits, int k_chunk, cudaStream_t s) {
+  int rc;
   if (transpose) {
-    RT_FLOAT_WIDTHS(bits, (launch<B, true, XT>(x, w, out, ws, E, M, N, K, wwords, splits,
-                                                 k_chunk, s)));
+    RT_FLOAT_WIDTHS(bits, (rc = launch<B, true, XT>(x, w, out, E, M, N, K, wwords, splits,
+                                                    k_chunk, s)));
   } else {
-    RT_FLOAT_WIDTHS(bits, (launch<B, false, XT>(x, w, out, ws, E, M, N, K, wwords, splits,
-                                                  k_chunk, s)));
+    RT_FLOAT_WIDTHS(bits, (rc = launch<B, false, XT>(x, w, out, E, M, N, K, wwords, splits,
+                                                     k_chunk, s)));
   }
-  return 0;
+  return rc;
 }
 
-int run(const void* x, int x_bf16, const void* w, void* out, void* ws, int E, int M, int N,
-        int K, int wwords, int bits, int transpose, int splits, int k_chunk, void* stream) {
+int run(const void* x, int x_bf16, const void* w, void* out, int E, int M, int N, int K,
+        int wwords, int bits, int transpose, int splits, int k_chunk, void* stream) {
   if (E == 0 || M == 0 || N == 0) return 0;
-  if (E * splits > 65535) return (int)cudaErrorInvalidValue;   // gridDim.z
+  // a split is a cluster, and the slices must cover K
+  if (splits < 1 || splits > MAX_SPLITS || k_chunk < 32 || k_chunk % 32 ||
+      (long long)splits * k_chunk < K || (long long)E * splits > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int rc = x_bf16
-      ? dispatch<__nv_bfloat16>(x, w, out, ws, E, M, N, K, wwords, bits, transpose, splits,
+      ? dispatch<__nv_bfloat16>(x, w, out, E, M, N, K, wwords, bits, transpose, splits,
                                 k_chunk, s)
-      : dispatch<float>(x, w, out, ws, E, M, N, K, wwords, bits, transpose, splits, k_chunk,
-                        s);
+      : dispatch<float>(x, w, out, E, M, N, K, wwords, bits, transpose, splits, k_chunk, s);
   if (rc) return rc;
   return (int)cudaGetLastError();
+}
+
+template <int B>
+int ring_bytes(int x_bf16) {
+  return x_bf16 ? Ring<B, __nv_bfloat16>::BYTES : Ring<B, float>::BYTES;
 }
 
 }  // namespace
 
 // x (M, K) f32 or bf16; w int32 words, (K, wwords) or (N, wwords) when
 // transposed, 16-byte aligned with wwords a multiple of 4 in the normal
-// orientation; out (M, N) in x's dtype; ws (splits, M, N) f32 when
-// splits > 1; k_chunk a multiple of 32.
-extern "C" int rt_packed_matmul(const void* x, int x_bf16, const void* w, void* out, void* ws,
-                                int M, int N, int K, int wwords, int bits, int transpose,
-                                int splits, int k_chunk, void* stream) {
-  return run(x, x_bf16, w, out, ws, 1, M, N, K, wwords, bits, transpose, splits, k_chunk,
-             stream);
+// orientation; out (M, N) in x's dtype; K cut into splits (1..8) slices
+// of k_chunk rows, a multiple of 32. One launch.
+extern "C" int rt_packed_matmul(const void* x, int x_bf16, const void* w, void* out, int M,
+                                int N, int K, int wwords, int bits, int transpose, int splits,
+                                int k_chunk, void* stream) {
+  return run(x, x_bf16, w, out, 1, M, N, K, wwords, bits, transpose, splits, k_chunk, stream);
 }
 
 // The same per expert: x (E, M, K); w (E, K, wwords) or (E, N, wwords)
-// when transposed; out (E, M, N); ws (E, splits, M, N) f32 when
-// splits > 1. One launch (two with a K split) for all experts.
+// when transposed; out (E, M, N). One launch for all experts.
 extern "C" int rt_packed_matmul_batched(const void* x, int x_bf16, const void* w, void* out,
-                                        void* ws, int E, int M, int N, int K, int wwords,
-                                        int bits, int transpose, int splits, int k_chunk,
-                                        void* stream) {
-  return run(x, x_bf16, w, out, ws, E, M, N, K, wwords, bits, transpose, splits, k_chunk,
-             stream);
+                                        int E, int M, int N, int K, int wwords, int bits,
+                                        int transpose, int splits, int k_chunk, void* stream) {
+  return run(x, x_bf16, w, out, E, M, N, K, wwords, bits, transpose, splits, k_chunk, stream);
+}
+
+// Dynamic shared memory, in bytes, that a block of the normal orientation
+// takes at ``bits`` for bf16 (x_bf16) or f32 x; -1 for an unknown width.
+extern "C" int rt_pmm_smem(int bits, int x_bf16) {
+  switch (bits) {
+    case 8: return ring_bytes<8>(x_bf16);
+    case 12: return ring_bytes<12>(x_bf16);
+    case 16: return ring_bytes<16>(x_bf16);
+    case 20: return ring_bytes<20>(x_bf16);
+    case 24: return ring_bytes<24>(x_bf16);
+    case 28: return ring_bytes<28>(x_bf16);
+    case 32: return ring_bytes<32>(x_bf16);
+    default: return -1;
+  }
 }

@@ -3,8 +3,10 @@
 Replaces ``repro/kernels/packed_matmul.py:packed_matmul``: ``x @ W``
 with W (K, N) packed along N, or ``x @ W^T`` with W (N, K) packed along
 K when ``transpose``. x is f32 or bf16 with any leading dims; the output
-is (..., N) in x's dtype, summed in f32 without TF32. The decoded W never
-reaches device memory.
+is (..., N) in x's dtype, summed in f32. In the normal orientation bf16 x
+against AF8, AF12 or AF16 weights multiplies on the tensor cores in TF32,
+which holds both operands exactly; every other case multiplies in f32.
+The decoded W never reaches device memory, and a call is one launch.
 """
 from __future__ import annotations
 
@@ -18,18 +20,28 @@ from repro_torch.kernels.build import (LaunchCount, check, library, require,
 
 launches = LaunchCount()
 
-BN, BM, BK = 256, 8, 32          # the kernel's tile sizes (csrc)
-BLOCKS_PER_SM = 2                # split K until the grid has this many
+BN, BM, BK = 64, 8, 32           # the normal orientation's tiles (csrc)
+BN_T = 256                       # the transposed one's columns per block
+MAX_SPLITS = 8                   # a thread-block cluster's portable size
 
 
 def split_plan(m: int, n: int, k: int, sms: int, experts: int = 1):
-    """(splits, k_chunk): how far K is cut so that the grid (``experts``
-    products of (m, k) x (k, n)) covers the SMs. k_chunk is a multiple of
-    BK; the last slice may be short."""
-    tiles = experts * -(-n // BN) * -(-m // BM)
+    """(splits, k_chunk): how far K is cut so that the normal
+    orientation's grid (``experts`` products of (m, k) x (k, n), in BN x
+    BM tiles) has a block for every SM. A tile's K slices are one
+    thread-block cluster, so splits is at most MAX_SPLITS. k_chunk is a
+    multiple of BK; the last slice may be short."""
+    return grid_plan(m, n, k, sms, experts)
+
+
+def grid_plan(m: int, n: int, k: int, sms: int, experts: int = 1,
+              transpose: bool = False):
+    """``split_plan`` for either orientation: the transposed one's tiles
+    are BN_T columns wide."""
+    tiles = experts * -(-n // (BN_T if transpose else BN)) * -(-m // BM)
     k_tiles = max(-(-k // BK), 1)
-    want = max(1, -(-(BLOCKS_PER_SM * sms) // tiles))
-    chunk_tiles = -(-k_tiles // min(want, k_tiles))
+    want = min(max(1, -(-sms // tiles)), MAX_SPLITS, k_tiles)
+    chunk_tiles = -(-k_tiles // want)
     return -(-k_tiles // chunk_tiles), chunk_tiles * BK
 
 
@@ -68,13 +80,11 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
     out = torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    splits, k_chunk = split_plan(m, n, kdim, sm_count(x))
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else out)
+    splits, k_chunk = grid_plan(m, n, kdim, sm_count(x), transpose=transpose)
     rc = library().rt_packed_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w_packed.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), m, n, kdim, wwords, bits,
-        int(transpose), splits, k_chunk, stream_ptr(x))
+        out.data_ptr(), m, n, kdim, wwords, bits, int(transpose), splits,
+        k_chunk, stream_ptr(x))
     check(rc, "packed_matmul")
     launches.n += 1
     return out

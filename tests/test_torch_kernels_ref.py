@@ -262,6 +262,57 @@ def test_split_plans_cover_the_work():
         assert (n_chunks - 1) * chunk < s <= n_chunks * chunk
 
 
+def test_split_plan_fits_a_cluster():
+    """A tile's K slices are one thread-block cluster: at most MAX_SPLITS
+    (8) of them, in either orientation. At every normal-orientation shape
+    of a full-width decode tick (8 slots, chip_smoke.py phase 2) of
+    qwen3-8b and deepseek-moe-16b the grid has a block for each of the
+    H100's 132 SMs, except where that cap binds: qwen3's wk/wv (16 column
+    tiles x 8 slices, 128 blocks) and deepseek's router (one tile, 8
+    blocks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.packed_matmul import (BM, BN, MAX_SPLITS,
+                                                   grid_plan, split_plan)
+    from repro_torch.models import blocks as B
+    rng = np.random.default_rng(7)
+    for _ in range(300):
+        m, n, k, e = (int(v) for v in
+                      rng.integers(1, (400, 200000, 40000, 80)))
+        for transpose in (False, True):
+            splits, chunk = grid_plan(m, n, k, 132, e, transpose)
+            assert 1 <= splits <= MAX_SPLITS and chunk % 32 == 0
+            assert (splits - 1) * chunk < k <= splits * chunk or k <= chunk
+    capped = []
+    for name in ("qwen3_8b", "deepseek_moe_16b"):
+        cfg = get_config(name)
+        d, hq = cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
+        hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+        # (what, rows of x, K, N, experts)
+        shapes = [("wq", 8, d, hq, 1), ("wo", 8, hq, d, 1),
+                  ("wk", 8, d, hkv, 1), ("lm_head", 8, d, cfg.vocab_size, 1)]
+        if cfg.family == "moe":
+            fs = cfg.moe_d_ff * cfg.n_shared_experts
+            cap = B.capacity(cfg, 8)
+            shapes += [("router", 8, d, cfg.n_experts, 1),
+                       ("w_in", 8, d, fs, 1), ("w_out", 8, fs, d, 1),
+                       ("bank_in", cap, d, cfg.moe_d_ff, cfg.n_experts),
+                       ("bank_out", cap, cfg.moe_d_ff, d, cfg.n_experts)]
+        else:
+            shapes += [("w_in", 8, d, cfg.d_ff, 1),
+                       ("w_out", 8, cfg.d_ff, d, 1)]
+        for what, m, k, n, e in shapes:
+            splits, _ = split_plan(m, n, k, 132, e)
+            blocks = e * -(-n // BN) * -(-m // BM) * splits
+            assert splits <= MAX_SPLITS
+            if blocks < 132:
+                assert splits == MAX_SPLITS, (name, what, blocks)
+                capped.append((name, what, blocks))
+    assert capped == [("qwen3_8b", "wk", 128),
+                      ("deepseek_moe_16b", "router", 8)]
+    # a full cluster at w_out's depth, as the card test runs it
+    assert split_plan(8, 1024, 12288, 132) == (8, 1536)
+
+
 # Card shapes (b, h, hkv, d, s) on which the attention body stages a
 # chunk over several shared-memory tiles, so its ring of two tiles turns
 # over: a long cache, the largest row (head_dim 256, 1 KB at AF32), and
@@ -353,10 +404,15 @@ def test_cuda_decode_every_af16_code(cuda):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("bits", (8, 12, 16, 32))
+@pytest.mark.parametrize("bits", (8, 12, 16, 20, 24, 32))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
+    """The kernel against its plain version: ragged shapes, and w_out's
+    shape (a 3-way K split) and a full cluster (8-way) made on the card.
+    bf16 x at AF8-AF16 runs on the tensor cores, the rest on f32 FMAs
+    (AF20 and AF24 codes straddle words)."""
     rng = np.random.default_rng(300 + bits)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
     for m, k, n in ((1, 5, 7), (3, 100, 33), (8, 64, 96), (17, 300, 260),
                     (8, 4096, 1024)):
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
@@ -366,9 +422,43 @@ def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
         want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
         got = ops.packed_matmul(x.to(cuda), wp.to(cuda), bits, n, transpose)
         assert got.dtype == dtype and got.shape == (m, n)
-        tol = 1e-4 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(got.float().cpu(), want.to(dtype).float(),
                                    rtol=tol, atol=tol)
+    gen = torch.Generator(device=cuda).manual_seed(300 + bits)
+    for m, k, n in ((8, 12288, 4096), (8, 12288, 1024)):
+        x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        w = torch.randn((n, k) if transpose else (k, n), generator=gen,
+                        device=cuda) / np.sqrt(k)
+        wp = ref.pack_ref(w, bits)
+        want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
+        got = ops.packed_matmul(x, wp, bits, n, transpose)
+        assert got.dtype == dtype and got.shape == (m, n)
+        torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bits", (8, 12, 16))
+def test_cuda_packed_matmul_mma_decode_exact(cuda, bits):
+    """The tensor-core path's decode is exact for every code: one-hot bf16
+    rows of x against a W holding each code once (code c in column c, row
+    c % 64, zeros elsewhere) give the plain version's bf16 values bit for
+    bit, with +0 and -0 equal and NaN compared as NaN-ness (a zero times
+    an inf or NaN code is NaN in both)."""
+    k, n = 64, 2**bits
+    cols = torch.arange(n)
+    codes = torch.zeros((k, n), dtype=torch.int32)
+    codes[cols % k, cols] = cols.to(torch.int32)
+    wp = bitpack.pack_groups(codes, bits).to(cuda)
+    x = torch.eye(k, dtype=torch.bfloat16, device=cuda)
+    got = ops.packed_matmul(x, wp, bits, n)
+    want = ref.packed_matmul_ref(x, wp, bits, n).bfloat16()
+    assert got.dtype == torch.bfloat16 and got.shape == (k, n)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    assert torch.equal(got[keep].float(), want[keep].float())
+    # the diagonal (row c % 64 of column c) is code c itself
+    diag = want[cols % k, cols].float()
+    assert torch.isinf(diag).sum().item() == 2
 
 
 def _ring_lens(rng, b, s):

@@ -436,13 +436,16 @@ def test_cuda_unfusable_bank_raises(cuda):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("bits", (8, 12, 16, 32))
+@pytest.mark.parametrize("bits", (8, 12, 16, 20, 24, 32))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_packed_matmul_batched(cuda, transpose, bits, dtype):
     """The kernel against its plain version: ragged shapes, one expert,
     a K split (small E), and 64 experts of one row each (the full-size
-    banks are checked by chip_smoke.py)."""
+    banks are checked by chip_smoke.py); then, made on the card, one
+    expert at w_out's shape (a 3-way K split) and two experts whose K
+    split fills a cluster (8-way)."""
     rng = np.random.default_rng(600 + bits)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
     for e, c, k, n in ((1, 1, 5, 7), (3, 2, 70, 37), (8, 3, 128, 64),
                        (2, 9, 300, 260), (64, 1, 256, 160)):
         rows, cols = (n, k) if transpose else (k, n)
@@ -454,8 +457,18 @@ def test_cuda_packed_matmul_batched(cuda, transpose, bits, dtype):
         got = ops.packed_matmul_batched(x.to(cuda), wp.to(cuda), bits, n,
                                         transpose)
         assert got.dtype == dtype and got.shape == (e, c, n)
-        tol = 1e-4 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(got.float().cpu(), want.to(dtype).float(),
+                                   rtol=tol, atol=tol)
+    gen = torch.Generator(device=cuda).manual_seed(600 + bits)
+    for e, c, k, n in ((1, 8, 12288, 4096), (2, 3, 12288, 512)):
+        x = torch.randn((e, c, k), generator=gen, device=cuda).to(dtype)
+        w = torch.randn((e, n, k) if transpose else (e, k, n), generator=gen,
+                        device=cuda) / np.sqrt(k)
+        wp = ref.pack_ref(w, bits)
+        want = ref.packed_matmul_batched_ref(x, wp, bits, n, transpose)
+        got = ops.packed_matmul_batched(x, wp, bits, n, transpose)
+        assert got.dtype == dtype and got.shape == (e, c, n)
+        torch.testing.assert_close(got.float(), want.to(dtype).float(),
                                    rtol=tol, atol=tol)
 
 
