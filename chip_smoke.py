@@ -27,15 +27,20 @@ Phases; any failure raises and the script exits non-zero:
    on qwen3-8b's w_up shape (bf16 x; no tick runs them).
    paged_attention is also held bit for bit to kv_decode over the same
    rows laid out dense, and against poison on the scrap page. ``pack``
-   also against its library call at AF16,
-   ``x.to(torch.float16).view(torch.int32)``.
+   (``ops.pack``, f32 and bf16) also against its library call at AF16,
+   ``x.to(torch.float16).view(torch.int32)``; its decode-tick launch,
+   the KV append (``ops.append_kv_rows``), at all 7 widths, dense and
+   paged, clamped and scrap rows included, and timed per layer beside
+   the eager composition it replaced (a cast, a pack and index writes
+   per row), each with its host issue time.
 2b. unpack, convert and truncate, which no model path calls, once: bit
    for bit (tolerance 0, bit patterns compared, so -0.0 and NaN bits
    count) against their plain versions at qwen3-8b's w_up leaf (4096,
    12288) and a ragged (7, 1000), all 7 widths; convert also on every
    code of AF8-AF20, truncate on the round-to-nearest-even ties of
    AF8-AF16 and every 4099th f32 bit pattern; each timed at AF16 on
-   the w_up shape beside its bound, plain and library times.
+   the w_up shape beside its bound, plain and library times; unpack
+   also at AF8 and AF12 and to bf16 at AF16.
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
    card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
@@ -48,7 +53,10 @@ Phases; any failure raises and the script exits non-zero:
    new tokens each, 8 slots, max_seq_len 64. For each drain the launch
    counters are zeroed just before it and read just after; every kernel
    of its path must have launched, exactly as often as the path's shape
-   says, and unpack, convert and truncate not at all.
+   says (one pack launch, the KV append, per layer and decode call),
+   and unpack, convert and truncate not at all; the drain's last
+   decode call is replayed under torch.profiler, as it runs and with
+   the append as the eager composition, to count its device launches.
 4. cross-device parity, for each model at 2 layers in f32: decode_step
    on the card (kernels) against the CPU (plain versions) with the same
    packed weights; for deepseek also the number of routing choices
@@ -65,6 +73,7 @@ printing either.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -278,39 +287,175 @@ def _special_rows(torch, gen, rows, n):
     return x
 
 
+def eager_append(ops, ref):
+    """The KV append as the port ran it on the card before the append
+    kernel: per row a ``.float()`` widening and a ``pack`` launch, then
+    an index_put at the row (dense: a clamp and an arange; paged: the
+    table gather of ``pool_row_index``). For ``ops.append_kv_rows``'s
+    place in timings and launch counts."""
+    def append(k_cache, v_cache, k_new, v_new, kv_len, bits, table=None):
+        b = k_new.shape[0]
+        rows = [ops.pack(x.reshape(b, -1).float(), bits).reshape(
+            b, x.shape[1], -1) for x in (k_new, v_new)]
+        if table is None:
+            for cache, row in zip((k_cache, v_cache), rows):
+                ref.write_rows(cache, row, kv_len)
+            return
+        idx = ref.pool_row_index(k_cache.shape[1], table, kv_len)
+        for cache, row in zip((k_cache, v_cache), rows):
+            ref.scatter_pool_rows(cache, row, idx)
+    return append
+
+
+def _append_case(torch, gen, layout, hkv, w, seq, lens, table_rows=None):
+    """Random int32 caches (K, V) for the append and its row inputs:
+    dense (slots, seq, hkv, w), or paged pools of ``seq``-row pages
+    through ``table_rows``."""
+    if layout == "dense":
+        shape, table = (SLOTS, seq, hkv, w), None
+    else:
+        table = torch.tensor(table_rows, dtype=torch.int32, device="cuda")
+        shape = (int(table.max().item()) + 1, seq, hkv, w)
+    caches = [torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                            dtype=torch.int32, device="cuda")
+              for _ in range(2)]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return caches, kv_len, table
+
+
+def _shared_rows(ref, page, kv_len, table):
+    """Pool rows that two or more slots write (idle slots on the scrap
+    page): which write lands there is not fixed."""
+    from collections import Counter
+
+    if table is None:
+        return []
+    idx = ref.pool_row_index(page, table, kv_len).tolist()
+    return [r for r, c in Counter(idx).items() if c > 1]
+
+
 def check_pack(torch, ops, ref, gen, cfg):
-    """The KV append operand, (slots, Hkv * head_dim), at all 7 widths
-    (bit-exact); timed at AF16."""
-    n = cfg.n_kv_heads * cfg.resolved_head_dim
+    """``ops.pack`` on the KV row operand (slots, Hkv * head_dim), f32 and
+    bf16 at all 7 widths (bit-exact), timed at AF16 beside the library
+    call. The KV append (``ops.append_kv_rows``, the tick's pack launch)
+    against its plain version at all 7 widths, dense and paged, bf16 and
+    f32 rows from strided views and contiguous ones, clamped lengths and
+    idle slots on the scrap page included (bit-exact on every row that
+    one slot writes);
+    timed per layer at AF16 at the tick's shape, dense and paged, beside
+    the eager composition it replaced, each with its host issue time."""
+    hkv, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    n = hkv * d
     x = _special_rows(torch, gen, SLOTS, n)
     for bits in WIDTHS:
-        got = ops.pack(x, bits)
-        want = ref.pack_ref(x, bits)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"pack AF{bits}: words differ")
+        for src in (x, x.to(torch.bfloat16)):
+            got = ops.pack(src, bits)
+            want = ref.pack_ref(src, bits)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"pack AF{bits} {src.dtype}: words "
+                                     "differ")
+    # the append: (name, slot lengths, table rows); dense lengths at and
+    # past S = 16 clamp to row 15; the paged case's slot 4 runs past its
+    # table, and slots 5-7 are idle (table rows all the scrap page 0;
+    # slots 5 and 6 write its row 0)
+    mp = 4
+    live = [[1 + 4 * b + j for j in range(mp)] for b in range(5)]
+    cases = [("dense", [0, 1, 15, 16, 17, 40, 7, 3], None),
+             ("paged", [0, 5, 15, 16, 99, 0, 4, 9],
+              live + [[0] * mp] * 3)]
+    checked = 0
+    for bits in WIDTHS:
+        w = -(-d // 32) * bits
+        for layout, lens, table_rows in cases:
+            seq = 16 if layout == "dense" else PAGE // 4
+            (kc, vc), kv_len, table = _append_case(torch, gen, layout, hkv, w,
+                                                   seq, lens, table_rows)
+            shared = _shared_rows(ref, seq, kv_len, table)
+            assert bool(shared) == (layout == "paged")
+            for dt, dense_rows in itertools.product(
+                    (torch.bfloat16, torch.float32), (False, True)):
+                proj = _special_rows(torch, gen, SLOTS, 3 * n).to(dt)
+                # a strided view (value stride 3) and a transposed one, or
+                # contiguous rows as the model gives them
+                k = proj.reshape(SLOTS, hkv, 3 * d)[:, :, ::3]
+                v = (_special_rows(torch, gen, hkv * SLOTS, d).to(dt)
+                     .reshape(hkv, SLOTS, d).transpose(0, 1))
+                if dense_rows:
+                    k, v = k.contiguous(), v.contiguous()
+                got, want = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+                ops.append_kv_rows(*got, k, v, kv_len, bits, table)
+                ref.append_kv_rows_ref(*want, k, v, kv_len, bits, table)
+                torch.cuda.synchronize()
+                for g, wt in zip(got, want):
+                    g = g.reshape((-1,) + g.shape[2:])
+                    wt = wt.reshape((-1,) + wt.shape[2:])
+                    if shared:
+                        g[shared], wt[shared] = 0, 0
+                    if not torch.equal(g, wt):
+                        raise AssertionError(
+                            f"append {layout} AF{bits} {dt}: words differ")
+                checked += 1
+    log(f"pack {cfg.name}: ops.pack f32 and bf16 and the append ({checked} "
+        "cases: 7 widths, dense and paged, bf16 and f32, strided views and "
+        "contiguous rows, clamped and scrap rows) bit-identical to the "
+        "plain versions")
+
     x16 = torch.randn((SLOTS, n), generator=gen, device="cuda")
     # the library call: AF16 is IEEE half, and 32 half codes are 16
     # little-endian words (NaN inputs would differ: no NaN here)
     if not torch.equal(ops.pack(x16, 16),
                        x16.to(torch.float16).view(torch.int32)):
         raise AssertionError("pack AF16: the library call's words differ")
-    calls_k = [lambda: ops.pack(x16, 16)]
-    ms, issue = time_ms(torch, calls_k, 200)
+    ms, issue = time_ms(torch, [lambda: ops.pack(x16, 16)], 200)
     plain = time_ms(torch, [lambda: ref.pack_ref(x16, 16)], 20)[0]
     lib = time_ms(torch, [lambda: x16.to(torch.float16).view(torch.int32)],
                   200)[0]
     out_words = SLOTS * n // 32 * 16
     b_ms, b_by = bound(x16.numel() * 4 + out_words * 4, 0.0)
-    calls = 2 * cfg.n_layers
-    rec = {"kernel": "pack", "model": cfg.name, "shape": [SLOTS, n],
-           "widths": "all 7",
-           "calls_per_tick": calls, "max_err": 0.0, "tol": 0.0,
-           "kernel_ms": ms, "host_issue_ms": issue,
-           "plain_ms": plain, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": lib}
-    log(json.dumps(rec))
-    return tick_summary([rec])
+    per_call = [{"kernel": "pack", "case": "ops.pack", "model": cfg.name,
+                 "shape": [SLOTS, n], "widths": "all 7", "calls_per_tick": 0,
+                 "max_err": 0.0, "tol": 0.0, "kernel_ms": ms,
+                 "host_issue_ms": issue, "plain_ms": plain, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib}]
+    log(json.dumps(per_call[0]))
+
+    # the append per layer at the tick's shape: bf16 rows, AF16 caches,
+    # lengths near the drain's; paged through pages of the drain's size
+    seq = MAX_SEQ if cfg.family != "moe" else MOE_MAX_SEQ
+    lens = [72, 80, 88, 96, 104, 112, 76, 92]
+    mp = seq // PAGE
+    tables = [[1 + mp * b + j for j in range(mp)] for b in range(SLOTS)]
+    eager = eager_append(ops, ref)
+    w = -(-d // 32) * 16
+    for layout, calls in (("dense", cfg.n_layers), ("paged", 0)):
+        (kc, vc), kv_len, table = _append_case(
+            torch, gen, layout, hkv, w, seq if layout == "dense" else PAGE,
+            lens, tables)
+        k, v = (torch.randn((SLOTS, 1, hkv, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)[:, 0]
+                for _ in range(2))
+        args = (kc, vc, k, v, kv_len, 16, table)
+        ms, issue = time_ms(torch, [lambda: ops.append_kv_rows(*args)], 200)
+        e_ms, e_issue = time_ms(torch, [lambda: eager(*args)], 200)
+        plain = time_ms(torch, [lambda: ref.append_kv_rows_ref(*args)], 20)[0]
+        # K and V read once, their words written once, kv_len (and the
+        # table entry a slot reads)
+        nbytes = 2 * SLOTS * n * 2 + 2 * SLOTS * hkv * w * 4 + SLOTS * 4 \
+            + (SLOTS * 4 if table is not None else 0)
+        b_ms, b_by = bound(nbytes, 0.0)
+        rec = {"kernel": "pack", "case": f"append {layout}", "model": cfg.name,
+               "rows": [SLOTS, hkv, d], "bits": 16, "calls_per_tick": calls,
+               "max_err": 0.0, "tol": 0.0, "kernel_ms": ms,
+               "host_issue_ms": issue, "eager_ms": e_ms,
+               "eager_host_issue_ms": e_issue, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        log(json.dumps(rec))
+        per_call.append(rec)
+    summary = tick_summary(per_call)
+    summary["pack_call"] = {"ms": per_call[0]["kernel_ms"],
+                            "library_ms": per_call[0]["library_ms"]}
+    return summary
 
 
 def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
@@ -764,6 +909,31 @@ def check_unpack_convert(torch, ops, ref, gen, cfg):
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "calls_per_tick": 0}
         del reps, lib_reps
+    # unpack at the other widths and to bf16, beside their bounds; the
+    # library call exists only at AF16 (f16 storage)
+    widths = []
+    for bits, dt in ((8, torch.float32), (12, torch.float32),
+                     (16, torch.float32), (16, torch.bfloat16)):
+        pk = p16 if bits == 16 else ops.pack(x, bits)
+        reps = [pk] + [pk.clone() for _ in range(
+            copies_for(pk.numel() * 4) - 1)]
+        ms, issue = time_ms(torch, [lambda r=r: ops.unpack(r, bits, n, dt)
+                                    for r in reps], 20)
+        lib_ms = None
+        if bits == 16:
+            lib_ms = time_ms(torch, [
+                lambda r=r: r.view(torch.float16).to(dt) for r in reps],
+                20)[0]
+        esize = torch.finfo(dt).bits // 8
+        b_ms, _ = bound(pk.numel() * 4 + numel * esize, 0.0)
+        rec = {"kernel": "unpack", "model": cfg.name, "shape": [rows, n],
+               "bits": bits, "out_dtype": str(dt).split(".")[-1],
+               "kernel_ms": ms, "host_issue_ms": issue, "bound_ms": b_ms,
+               "bound_share": b_ms / ms, "library_ms": lib_ms}
+        log(json.dumps(rec))
+        widths.append(rec)
+        del reps, pk
+    out["unpack"]["per_width"] = widths
     del x, p16, code16, x_half
     torch.cuda.empty_cache()
     return out
@@ -778,15 +948,15 @@ def path_launches(cfg, ticks: int, positions: int, paged: bool = False):
     ``positions`` prefill positions, by the code of the decode body: per
     layer q, k, v and o products, the MLP's three (dense) or the router
     and the shared experts' three (moe), the three expert banks (moe),
-    two KV packs and one attention (kv_decode, or paged_attention on a
-    paged cache); per position one embedding gather; per tick one
+    one KV append (a pack launch for K and V) and one attention
+    (kv_decode, or paged_attention on a paged cache); per position one embedding gather; per tick one
     lm_head product (prefill drops the logits)."""
     L = cfg.n_layers
     moe = cfg.family == "moe"
     pm = 8 if moe else 7
     steps = ticks + positions
     return {"packed_matmul": steps * pm * L + ticks,
-            "pack": steps * 2 * L,
+            "pack": steps * L,
             "kv_decode": 0 if paged else steps * L,
             "take_rows": steps,
             "packed_matmul_batched": steps * 3 * L if moe else 0,
@@ -809,12 +979,33 @@ def random_prompts(np, cfg, lens):
             for n in rng.integers(lens[0], lens[1] + 1, SLOTS)]
 
 
+def device_launches(torch, call):
+    """What one ``call`` puts on the card, by torch.profiler: kernels,
+    all device activities (kernels, copies, memsets) and the host's
+    kernel-launch API calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"kernels": sum(not e.name.startswith(("Memcpy", "Memset"))
+                           for e in dev),
+            "device_activities": len(dev),
+            "launch_api_calls": sum("LaunchKernel" in e.name
+                                    for e in events)}
+
+
 def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
           paged: bool = False, params=None):
     """Drain ``prompts`` through a full-width engine (on ``params`` when
     given); returns (launch counts, outputs, engine)."""
     from repro_torch import obs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.serving import ServeEngine
 
     torch.cuda.reset_peak_memory_stats()
@@ -833,9 +1024,10 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     # the host's time to issue each decode tick of the drain against the
     # time until the card has finished it (prefill does not call
     # decode_step)
-    step, issue, total = eng.lm.decode_step, [], []
+    step, issue, total, last = eng.lm.decode_step, [], [], []
 
     def timed_decode(p, state, toks):
+        last[:] = [p, state, toks]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step(p, state, toks)
@@ -887,6 +1079,18 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     res["decode_step_issue_ms"] = issue
     res["decode_step_total_ms"] = total
     log("serve: " + json.dumps(res))
+    # the drain's last decode call replayed (it writes the rows it wrote):
+    # what it launches now, and with the KV append as the eager
+    # composition it replaced
+    replay = {"after": device_launches(torch, lambda: step(*last))}
+    append = ops.append_kv_rows
+    ops.append_kv_rows = eager_append(ops, ref)
+    try:
+        replay["before"] = device_launches(torch, lambda: step(*last))
+    finally:
+        ops.append_kv_rows = append
+    log(f"decode-call launches: {cfg.name} {mode}, one decode call, "
+        f"torch.profiler: " + json.dumps(replay))
     for name, n in expect.items():
         if n and not counts[name]:
             raise AssertionError(f"{name} never launched on the "
@@ -1189,7 +1393,8 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "calls_per_tick": r["calls_per_tick"], "timing": timing,
             "launches_by_drain": {m: c[name] for m, c in launches.items()},
-            "per_tick_by_model": per_tick})
+            "per_tick_by_model": per_tick,
+            **{k: r[k] for k in ("pack_call", "per_width") if k in r}})
     log(f"total {time.perf_counter() - t_start:.0f} s; card {smi.stdout.strip()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

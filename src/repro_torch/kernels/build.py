@@ -33,8 +33,10 @@ _LL = ctypes.c_longlong
 # C entry points: name -> argtypes (every pointer and the stream are
 # c_void_p; each returns the launch's cudaGetLastError() as an int)
 SIGNATURES: Dict[str, List] = {
-    "rt_pack": [_P, _P, _LL, _I, _I, _P],
-    "rt_unpack": [_P, _P, _LL, _I, _I, _I, _P],
+    "rt_pack": [_P, _P, _LL, _I, _I, _I, _P],
+    "rt_append_kv": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _I, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rt_unpack": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "rt_convert": [_P, _P, _LL, _I, _P],
     "rt_truncate": [_P, _P, _LL, _I, _I, _P],
     "rt_take_rows": [_P, _P, _I, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P],

@@ -3,8 +3,10 @@
 // The device twin of repro_torch/core/formats.py (and of the reference
 // repro/core/formats.py): one decode and one encode routine, templated on
 // the code width, bit for bit equal to the Python versions, plus the
-// group-of-32 code extraction of core/bitpack.py. Packed words are int32
-// tensors on the Python side and are read here as uint32_t.
+// group-of-32 code extraction of core/bitpack.py; beside them the fast
+// routes (AF16 through the hardware conversions, decode8 for 8 codes of
+// AF8-AF16 at once). Packed words are int32 tensors on the Python side
+// and are read here as uint32_t.
 #pragma once
 
 #include <cstdint>
@@ -152,6 +154,23 @@ __device__ __forceinline__ uint32_t encode_float(float x) {
   }
 }
 
+// f32 -> AF16 code through the hardware conversion (cvt.rn.f16.f32):
+// round to nearest even, half subnormals, inf from 65520 up, f32
+// subnormals to signed zero, as encode_float<16> does; only its NaN
+// (0x7FFF) differs, so a NaN input takes encode_float's sign | 0x7E00.
+__device__ __forceinline__ uint32_t encode_af16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return ((u >> 16) & 0x8000u) | 0x7E00u;
+  return __half_as_ushort(__float2half_rn(x));
+}
+
+// encode_float's code, AF16 through the hardware conversion.
+template <int BITS>
+__device__ __forceinline__ uint32_t encode_code(float x) {
+  if constexpr (BITS == 16) return encode_af16(x);
+  else return encode_float<BITS>(x);
+}
+
 // Narrow integer code -> int32: zero extension, or sign extension.
 template <int BITS>
 __device__ __forceinline__ int32_t decode_int(uint32_t code, bool is_signed) {
@@ -169,6 +188,67 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The power of two that decode8 leaves out of AF8 and AF12 values: their
+// fields read as an f16, whose bias is 15, not 3 or 7.
+template <int B>
+constexpr float kScale = B == 8 ? 4096.f : (B == 12 ? 256.f : 1.f);
+
+// Two f16 lanes of a word -> two floats (the hardware conversion, exact).
+__device__ __forceinline__ float2 halves(uint32_t h) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// 8 consecutive codes that start at a word boundary (codes [8g, 8g + 8)
+// of a group), held in the B / 4 words u, as floats over kScale<B>.
+// Returns true when one of them has the all-ones exponent (inf or NaN),
+// which this decode gets wrong for AF8 and AF12; AF16 NaNs keep their
+// payload.
+template <int B>
+__device__ __forceinline__ bool decode8(const uint32_t (&u)[B / 4], float (&f)[8]) {
+  if constexpr (B == 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = halves(u[i]);
+      f[2 * i] = v.x, f[2 * i + 1] = v.y;
+    }
+    return false;
+  } else if constexpr (B == 8) {
+    // byte c of a word is a code: the f16 lanes of h02 take codes 0 and 2,
+    // those of h13 codes 1 and 3, each its sign at bit 15 and its exponent
+    // and mantissa at bits 6-12
+    uint32_t ok = 0xFFFFFFFFu;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t w = u[i];
+      const float2 a = halves(((w << 6) & 0x1FC01FC0u) | ((w << 8) & 0x80008000u));
+      const float2 b = halves(((w >> 2) & 0x1FC01FC0u) | (w & 0x80008000u));
+      f[4 * i] = a.x, f[4 * i + 1] = b.x, f[4 * i + 2] = a.y, f[4 * i + 3] = b.y;
+      // bit 7 of a byte clears exactly when its exponent is all ones
+      ok &= (w | 0x8F8F8F8Fu) + 0x01010101u;
+    }
+    return (ok & 0x80808080u) != 0x80808080u;
+  } else {
+    static_assert(B == 12, "decode8 takes AF8, AF12 and AF16");
+    // code c at bits [12c, 12c + 12): p[i] holds codes 2i and 2i + 1 in
+    // its 16-bit lanes, then each lane takes its sign at bit 15 and its
+    // exponent and mantissa at bits 3-13
+    uint32_t p[4];
+    p[0] = (u[0] & 0xFFFu) | ((u[0] << 4) & 0x0FFF0000u);
+    p[1] = (__funnelshift_r(u[0], u[1], 24) & 0xFFFu) | ((u[1] << 12) & 0x0FFF0000u);
+    p[2] = ((u[1] >> 16) & 0xFFFu) | ((__funnelshift_r(u[1], u[2], 28) << 16) & 0x0FFF0000u);
+    p[3] = ((u[2] >> 8) & 0xFFFu) | ((u[2] >> 4) & 0x0FFF0000u);
+    uint32_t bad = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = halves(((p[i] << 4) & 0x80008000u) | ((p[i] << 3) & 0x3FF83FF8u));
+      f[2 * i] = v.x, f[2 * i + 1] = v.y;
+      // bit 12 of a lane sets exactly when its exponent is all ones
+      bad |= (p[i] | 0x087F087Fu) + 0x00010001u;
+    }
+    return (bad & 0x10001000u) != 0;
+  }
 }
 
 }  // namespace rt

@@ -68,6 +68,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using rt::decode8;
+using rt::halves;
+using rt::kScale;
+
 constexpr int BN = 64;          // normal orientation: output columns per block
 constexpr int BM = 8;           // rows of x per block: the mma's n
 constexpr int WARPS = 8;        // warps per block
@@ -81,11 +85,6 @@ constexpr int BK_T = 32;        // and its K tile
 // The tensor-core path: bf16 x and a width whose values TF32 holds.
 template <int B, typename XT>
 constexpr bool kMma = std::is_same<XT, __nv_bfloat16>::value && B <= 16;
-
-// The power of two that the tensor-core decode of AF8 and AF12 leaves out:
-// their fields read as an f16, whose bias is 15, not 3 or 7.
-template <int B>
-constexpr float kScale = B == 8 ? 4096.f : (B == 12 ? 256.f : 1.f);
 
 // A warp's ring, in 32-bit words: STAGES stages of RS tile rows (two
 // groups of 32 codes, WPR words, padded to S) and BM rows of RS elements
@@ -171,11 +170,6 @@ __device__ __forceinline__ void mma_tf32(float* d, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Two f16 lanes of a word -> two floats (the hardware conversion, exact).
-__device__ __forceinline__ float2 halves(uint32_t h) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&h));
-}
-
 template <int U>
 __device__ __forceinline__ void load_unit(const uint32_t* p, uint32_t (&u)[U]) {
   if constexpr (U == 4) {
@@ -187,55 +181,6 @@ __device__ __forceinline__ void load_unit(const uint32_t* p, uint32_t (&u)[U]) {
   } else {
 #pragma unroll
     for (int i = 0; i < U; ++i) u[i] = p[i];
-  }
-}
-
-// The 8 codes [8g, 8g + 8) of a tile row, held in the B / 4 words u, as
-// floats over kScale<B>. Returns true when one of them has the all-ones
-// exponent (inf or NaN), which this decode gets wrong for AF8 and AF12.
-template <int B>
-__device__ __forceinline__ bool decode8(const uint32_t (&u)[B / 4], float (&f)[8]) {
-  if constexpr (B == 16) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = halves(u[i]);
-      f[2 * i] = v.x, f[2 * i + 1] = v.y;
-    }
-    return false;
-  } else if constexpr (B == 8) {
-    // byte c of a word is a code: the f16 lanes of h02 take codes 0 and 2,
-    // those of h13 codes 1 and 3, each its sign at bit 15 and its exponent
-    // and mantissa at bits 6-12
-    uint32_t ok = 0xFFFFFFFFu;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint32_t w = u[i];
-      const float2 a = halves(((w << 6) & 0x1FC01FC0u) | ((w << 8) & 0x80008000u));
-      const float2 b = halves(((w >> 2) & 0x1FC01FC0u) | (w & 0x80008000u));
-      f[4 * i] = a.x, f[4 * i + 1] = b.x, f[4 * i + 2] = a.y, f[4 * i + 3] = b.y;
-      // bit 7 of a byte clears exactly when its exponent is all ones
-      ok &= (w | 0x8F8F8F8Fu) + 0x01010101u;
-    }
-    return (ok & 0x80808080u) != 0x80808080u;
-  } else {
-    static_assert(B == 12, "the tensor-core path takes AF8, AF12 and AF16");
-    // code c at bits [12c, 12c + 12): p[i] holds codes 2i and 2i + 1 in
-    // its 16-bit lanes, then each lane takes its sign at bit 15 and its
-    // exponent and mantissa at bits 3-13
-    uint32_t p[4];
-    p[0] = (u[0] & 0xFFFu) | ((u[0] << 4) & 0x0FFF0000u);
-    p[1] = (__funnelshift_r(u[0], u[1], 24) & 0xFFFu) | ((u[1] << 12) & 0x0FFF0000u);
-    p[2] = ((u[1] >> 16) & 0xFFFu) | ((__funnelshift_r(u[1], u[2], 28) << 16) & 0x0FFF0000u);
-    p[3] = ((u[2] >> 8) & 0xFFFu) | ((u[2] >> 4) & 0x0FFF0000u);
-    uint32_t bad = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = halves(((p[i] << 4) & 0x80008000u) | ((p[i] << 3) & 0x3FF83FF8u));
-      f[2 * i] = v.x, f[2 * i + 1] = v.y;
-      // bit 12 of a lane sets exactly when its exponent is all ones
-      bad |= (p[i] | 0x087F087Fu) + 0x00010001u;
-    }
-    return (bad & 0x10001000u) != 0;
   }
 }
 

@@ -13,7 +13,7 @@ kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,8 +62,30 @@ def record_dispatch(op: str, path: str, shape: Tuple[int, ...] = (),
 def pack(x: torch.Tensor, bits: int) -> torch.Tensor:
     record_dispatch("pack", "encode")
     if x.is_cuda:
-        return _pack.pack(x.float().contiguous(), bits)
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            x = x.float()
+        return _pack.pack(x.contiguous(), bits)
     return _ref.pack_ref(x, bits)
+
+
+def append_kv_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   kv_len: torch.Tensor, bits: int,
+                   table: Optional[torch.Tensor] = None) -> None:
+    """One token's K and V rows (B, Hkv, D) packed and written in place at
+    row ``kv_len[b]`` of the packed dense caches (B, S, Hkv, W), or
+    through the page table (B, max_pages) at their pool rows (P+1, page,
+    Hkv, W): the reference's ``kops.pack`` of the flat row and its
+    write, one kernel launch on the card."""
+    record_dispatch("pack", "encode")
+    if k_cache.is_cuda:
+        _pack.append_kv_rows(
+            k_cache, v_cache, k_new, v_new,
+            kv_len.to(torch.int32).contiguous(), bits,
+            None if table is None else table.to(torch.int32).contiguous())
+        return
+    _ref.append_kv_rows_ref(k_cache, v_cache, k_new, v_new, kv_len, bits,
+                            table)
 
 
 def unpack(packed: torch.Tensor, bits: int, n: int,

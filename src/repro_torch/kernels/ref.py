@@ -54,6 +54,59 @@ def pack_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
                                bits)
 
 
+def pack_kv_row(row: torch.Tensor, bits: int) -> torch.Tensor:
+    """One token's (B, Hkv, D) K or V row as a packed cache stores it:
+    packed as one (B, Hkv*D) operand, reshaped to (B, Hkv, words), as the
+    reference packs it."""
+    b = row.shape[0]
+    return pack_ref(row.reshape(b, -1), bits).reshape(b, row.shape[1], -1)
+
+
+def write_rows(cache: torch.Tensor, row: torch.Tensor,
+               kv_len: torch.Tensor) -> None:
+    """cache[b, kv_len[b]] = row[b], in place, with the row index clamped
+    to S - 1 as ``lax.dynamic_update_slice`` clamps it in the reference:
+    padding rows and idle slots write at lengths >= S."""
+    pos = kv_len.long().clamp(0, cache.shape[1] - 1)
+    batch = torch.arange(cache.shape[0], device=cache.device)
+    cache[batch, pos] = row.to(cache.dtype)
+
+
+def pool_row_index(page: int, table: torch.Tensor,
+                   kv_len: torch.Tensor) -> torch.Tensor:
+    """The flat pool row (page id * page + offset) that holds position
+    ``kv_len[b]`` of sequence b, the position clamped to max_pages *
+    page - 1."""
+    pos = kv_len.long().clamp(0, table.shape[1] * page - 1)
+    ids = table.long().gather(1, (pos // page)[:, None])[:, 0]
+    return ids * page + pos % page
+
+
+def scatter_pool_rows(pool: torch.Tensor, row: torch.Tensor,
+                      rows: torch.Tensor) -> None:
+    """pool's flat rows ``rows`` = row (B, Hkv, W), in place."""
+    pool.view((-1,) + tuple(pool.shape[2:]))[rows] = row.to(pool.dtype)
+
+
+def append_kv_rows_ref(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       kv_len: torch.Tensor, bits: int,
+                       table: Optional[torch.Tensor] = None) -> None:
+    """One token's packed K/V append, in place: each (B, Hkv, D) row
+    packed by ``pack_kv_row`` and written at ``kv_len[b]`` of the dense
+    caches (B, S, Hkv, W) or, through ``table`` (B, max_pages), at its
+    row of the pools (P+1, page, Hkv, W). Several idle slots may clamp
+    onto one scrap-page row; which of their writes lands is not fixed."""
+    k_row, v_row = pack_kv_row(k_new, bits), pack_kv_row(v_new, bits)
+    if table is None:
+        write_rows(k_cache, k_row, kv_len)
+        write_rows(v_cache, v_row, kv_len)
+        return
+    rows = pool_row_index(k_cache.shape[1], table, kv_len)
+    scatter_pool_rows(k_cache, k_row, rows)
+    scatter_pool_rows(v_cache, v_row, rows)
+
+
 def convert_ref(code: torch.Tensor, bits: int) -> torch.Tensor:
     """Value Converter: one narrow-float code lane -> f32 lane."""
     return decode_float(code, FLOAT_FORMATS[bits])

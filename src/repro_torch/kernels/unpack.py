@@ -12,7 +12,7 @@ import torch
 from repro_torch.core.bitpack import packed_group_words
 from repro_torch.core.formats import FLOAT_FORMATS
 from repro_torch.kernels.build import (LaunchCount, check, library, require,
-                                       stream_ptr)
+                                       sm_count, stream_ptr)
 
 launches = LaunchCount()
 
@@ -36,8 +36,10 @@ def unpack(packed: torch.Tensor, bits: int, n: int,
     rows = packed.numel() // words if words else 0
     out = torch.empty(packed.shape[:-1] + (n,), dtype=out_dtype,
                       device=packed.device)
+    aligned = packed.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     rc = library().rt_unpack(packed.data_ptr(), out.data_ptr(), rows, n, bits,
-                             _OUT_DTYPE[out_dtype], stream_ptr(packed))
+                             _OUT_DTYPE[out_dtype], int(aligned),
+                             sm_count(packed), stream_ptr(packed))
     check(rc, "unpack")
     launches.n += 1
     return out

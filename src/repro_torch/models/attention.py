@@ -3,7 +3,8 @@ paged.
 
 Port of the decode half of ``repro.models.attention``. A packed cache is
 an int32 word tensor (B, S, Hkv, ceil(D/32) * bits): the append packs
-each new row through ``kernels.ops.pack`` and attention reads the words
+the new K and V rows and stores their words in one
+``kernels.ops.append_kv_rows`` call, and attention reads the words
 through ``kernels.ops.kv_decode``, so the cache is never decoded to
 device memory. A paged cache is one layer's page pool (P+1, page, Hkv,
 W) shared by all sequences and a page table (B, max_pages): the append
@@ -23,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 NEG_INF = -1e30
 
@@ -52,33 +54,16 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                     k_new: torch.Tensor, v_new: torch.Tensor,
                     kv_len: torch.Tensor, kv_bits: Optional[int] = None):
     """Write one token's K/V (B, Hkv, D) at row ``kv_len[b]`` of each
-    sequence, in place. A packed cache takes the row packed as one
-    (B, Hkv*D) operand, reshaped to (B, Hkv, words), as the reference
-    does."""
-    _write_rows(k_cache, _pack_row(k_new, kv_bits), kv_len)
-    _write_rows(v_cache, _pack_row(v_new, kv_bits), kv_len)
+    sequence, in place, the row clamped to S - 1 as the reference's
+    ``dynamic_update_slice`` clamps it. A packed cache takes the row
+    packed as one (B, Hkv*D) operand, reshaped to (B, Hkv, words), as the
+    reference does: one ``kernels.ops.append_kv_rows`` call."""
+    if kv_bits:
+        kops.append_kv_rows(k_cache, v_cache, k_new, v_new, kv_len, kv_bits)
+    else:
+        kref.write_rows(k_cache, k_new, kv_len)
+        kref.write_rows(v_cache, v_new, kv_len)
     return k_cache, v_cache
-
-
-def _pack_row(row: torch.Tensor, kv_bits: Optional[int]) -> torch.Tensor:
-    """One token's (B, Hkv, D) row as the cache stores it: packed as one
-    (B, Hkv*D) operand, reshaped to (B, Hkv, words); as it is when the
-    cache is not packed."""
-    if not kv_bits:
-        return row
-    b = row.shape[0]
-    return kops.pack(row.reshape(b, -1).float(), kv_bits).reshape(
-        b, row.shape[1], -1)
-
-
-def _write_rows(cache: torch.Tensor, row: torch.Tensor,
-                kv_len: torch.Tensor) -> None:
-    """cache[b, kv_len[b]] = row[b], with the row index clamped to S - 1
-    as ``lax.dynamic_update_slice`` clamps it in the reference: padding
-    rows and idle slots write at lengths >= S."""
-    pos = kv_len.long().clamp(0, cache.shape[1] - 1)
-    batch = torch.arange(cache.shape[0], device=cache.device)
-    cache[batch, pos] = row.to(cache.dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -99,23 +84,11 @@ def append_kv_pool_row(k_pool: torch.Tensor, v_pool: torch.Tensor,
     page, in place. The row packs as ``update_kv_cache`` packs it, so
     dense and paged caches hold identical words. Lengths past the table
     clamp onto its last entry (the scrap page 0 for an idle slot)."""
-    rows = pool_row_index(k_pool.shape[1], table, kv_len)
-    scatter_pool_rows(k_pool, _pack_row(k_new, kv_bits), rows)
-    scatter_pool_rows(v_pool, _pack_row(v_new, kv_bits), rows)
+    if kv_bits:
+        kops.append_kv_rows(k_pool, v_pool, k_new, v_new, kv_len, kv_bits,
+                            table)
+    else:
+        rows = kref.pool_row_index(k_pool.shape[1], table, kv_len)
+        kref.scatter_pool_rows(k_pool, k_new, rows)
+        kref.scatter_pool_rows(v_pool, v_new, rows)
     return k_pool, v_pool
-
-
-def pool_row_index(page: int, table: torch.Tensor,
-                   kv_len: torch.Tensor) -> torch.Tensor:
-    """The flat pool row (page id * page + offset) that holds position
-    ``kv_len[b]`` of sequence b, the position clamped to max_pages *
-    page - 1."""
-    pos = kv_len.long().clamp(0, table.shape[1] * page - 1)
-    ids = table.long().gather(1, (pos // page)[:, None])[:, 0]
-    return ids * page + pos % page
-
-
-def scatter_pool_rows(pool: torch.Tensor, row: torch.Tensor,
-                      rows: torch.Tensor) -> None:
-    """pool's flat rows ``rows`` = row (B, Hkv, W), in place."""
-    pool.view((-1,) + tuple(pool.shape[2:]))[rows] = row.to(pool.dtype)

@@ -43,7 +43,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.attention import pool_row_index, scatter_pool_rows
 from repro_torch.models.config import ModelConfig
 
 
@@ -80,8 +79,8 @@ def scatter_kv_row(pool: torch.Tensor, view: torch.Tensor,
     slot). CPU tensors only."""
     _cpu_only(pool, "scatter_kv_row")
     pos = lens.long().clamp(0, view.shape[1] - 1)
-    scatter_pool_rows(pool, view[torch.arange(view.shape[0]), pos],
-                      pool_row_index(pool.shape[1], table, pos))
+    kref.scatter_pool_rows(pool, view[torch.arange(view.shape[0]), pos],
+                           kref.pool_row_index(pool.shape[1], table, pos))
     return pool
 
 

@@ -203,6 +203,10 @@ def test_wrappers_refuse_cpu_tensors():
         convert.convert(w, 16)
     with pytest.raises(ValueError, match="CUDA"):
         convert.truncate(x, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        pack.append_kv_rows(cache, cache, torch.zeros(1, 1, 32),
+                            torch.zeros(1, 1, 32),
+                            torch.ones(1, dtype=torch.int32), 16)
     assert ops.launch_counts() == before
 
 

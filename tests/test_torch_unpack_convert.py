@@ -254,6 +254,37 @@ def test_cuda_unpack_bit_exact(cuda, bits):
         ops.unpack(words.to(cuda), bits, n + 32)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", WIDTHS)
+def test_cuda_unpack_row_lengths(cuda, bits, out_dtype):
+    """Rows of n in {32, 33, 100, 12288} (16-byte stores, scalar tails,
+    rows that start unaligned), a 3-D payload, a payload whose base is
+    not 16-byte aligned, and every code of AF8 to AF16 (the fast decodes
+    and their inf/NaN fallback), bit for bit the plain version."""
+    from repro_torch.core import bitpack
+
+    rng = np.random.default_rng(300 + bits)
+    cases = []
+    for shape in ((3, 32), (5, 33), (4, 100), (2, 12288), (2, 3, 100)):
+        cases.append((ref.pack_ref(torch.from_numpy(
+            _awkward_floats(rng, shape)), bits).to(cuda), shape[-1]))
+    words = cases[2][0].reshape(-1)
+    shifted = torch.cat([words.new_zeros(1), words])[1:]   # base 4 bytes off
+    assert shifted.data_ptr() % 16
+    cases.append((shifted, 32 * words.numel() // bits - 5))
+    if bits <= 16:
+        codes = torch.arange(2**bits, dtype=torch.int32)
+        cases.append((bitpack.pack_groups(codes.reshape(-1, 32), bits)
+                      .to(cuda), 32))
+    for words, n in cases:
+        got = _launched("unpack", lambda: ops.unpack(words, bits, n,
+                                                     out_dtype))
+        torch.cuda.synchronize()
+        want = ref.unpack_ref(words, bits, n, out_dtype)
+        assert got.shape == want.shape
+        assert torch.equal(_bit_view(got), _bit_view(want))
+
+
 @pytest.mark.parametrize("bits", WIDTHS)
 def test_cuda_convert_every_code(cuda, bits):
     """Every code up to AF20, random 32-bit words at every width (bits
