@@ -23,7 +23,11 @@ Phases; any failure raises and the script exits non-zero:
    L2) and the bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s). kv_decode is also held to its plain version on AF8 and
    AF32 caches of qwen3-8b's tick shape (checked, not timed: no tick
-   runs them). packed_matmul is also checked and timed at AF8 and AF12
+   runs them). take_rows is timed at the tick with the same rows every
+   call and with fresh rows (past the L2), held to its plain version on
+   NaN codes to bf16 at all 7 widths, and for qwen3-8b also checked and
+   timed at the (B, T) embed shape, slots x max_seq_len = 2,048 rows, to
+   bf16 and f32 (``many_rows`` in its kernels entry). packed_matmul is also checked and timed at AF8 and AF12
    on qwen3-8b's w_up shape (bf16 x; no tick runs them).
    paged_attention is also held bit for bit to kv_decode over the same
    rows laid out dense, and against poison on the scrap page. ``pack``
@@ -103,7 +107,7 @@ KERNELS = {
              "src/repro/kernels/pack.py:37"),
     "kv_decode": ("src/repro_torch/kernels/csrc/kv_decode.cu",
                   "src/repro/kernels/kv_decode.py:85"),
-    "take_rows": ("src/repro_torch/kernels/csrc/take.cu",
+    "take_rows": ("src/repro_torch/kernels/csrc/unpack.cu",
                   "src/repro/kernels/take.py:51"),
     "packed_matmul_batched": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
                               "src/repro/kernels/packed_matmul.py:279"),
@@ -666,47 +670,130 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
 
 
 def check_take_rows(torch, F, ops, ref, gen, cfg):
-    """Gather slots rows of the AF16 embedding table (bit-exact), plus
-    every AF8/AF12/AF16 code through the decoder."""
+    """Gather slots rows of the AF16 embedding table to bf16, bit for bit,
+    timed with the same rows every call (warm in the L2) and with fresh
+    rows every call (cold); every AF8/AF12/AF16 code through the decoder;
+    NaN codes of both signs to bf16 bit for bit against the plain version
+    at all 7 widths (sign | 0x7FC0). For qwen3-8b also the (B, T) embed
+    shape, slots x max_seq_len rows, to bf16 and f32, beside its bound."""
     from repro_torch.core import bitpack
 
     v, d = cfg.vocab_size, cfg.d_model
+    bf = torch.bfloat16
     table = ops.pack(torch.randn((v, d), generator=gen, device="cuda")
                      * 0.02, 16)
+    words = table.shape[1]
     idx = torch.tensor([5, v - 1, 0, 77777, 5, 123, 9999, 5],
                        dtype=torch.int32, device="cuda")
-    got = ops.take_rows(table, idx, 16, d, out_dtype=torch.bfloat16)
-    want = ref.take_rows_ref(table, idx, 16, d, out_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("take_rows: rows differ")
+    got = ops.take_rows(table, idx, 16, d, out_dtype=bf)
+    _expect_same_bits(torch, got, ref.take_rows_ref(table, idx, 16, d,
+                                                    out_dtype=bf),
+                      "take_rows tick")
     for bits in (8, 12, 16):
         codes = torch.arange(2**bits, device="cuda").to(torch.int32)
         tab = bitpack.pack_groups(codes.reshape(-1, 32), bits)
         ix = torch.arange(tab.shape[0], dtype=torch.int32, device="cuda")
-        a = ops.take_rows(tab, ix, bits, 32).view(torch.int32)
-        b = ref.take_rows_ref(tab, ix, bits, 32).view(torch.int32)
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"AF{bits} decode differs on some code")
-    calls_k = [lambda: ops.take_rows(table, idx, 16, d,
-                                     out_dtype=torch.bfloat16)]
+        _expect_same_bits(torch, ops.take_rows(tab, ix, bits, 32),
+                          ref.take_rows_ref(tab, ix, bits, 32),
+                          f"take_rows AF{bits} every code")
+    nans = 0
+    for bits in WIDTHS:              # random words: NaN codes of both signs
+        tab = torch.randint(0, 2**32, (64, -(-d // 32) * bits), generator=gen,
+                            device="cuda").to(torch.int32)
+        if bits == 16:
+            tab[0, :2] = torch.tensor([0x7E01FE01, 0x3C00], dtype=torch.int32)
+        ix = torch.randint(0, 64, (SLOTS,), generator=gen, device="cuda")
+        ix[0] = 0
+        out = ops.take_rows(tab, ix, bits, d, out_dtype=bf)
+        _expect_same_bits(torch, out, ref.take_rows_ref(tab, ix, bits, d,
+                                                        out_dtype=bf),
+                          f"take_rows AF{bits} -> bf16 NaN bits")
+        if bits == 16 and out[0, :3].view(torch.int16).tolist() != [
+                -64, 0x7FC0, 0x3F80]:              # 0xFFC0 0x7FC0 0x3F80
+            raise AssertionError("take_rows: AF16 NaN codes -> bf16 bits")
+        nans += int(torch.isnan(out).sum())
+    log(json.dumps({"kernel": "take_rows", "model": cfg.name,
+                    "bf16_nan_bits_equal": True, "nan_values_checked": nans}))
+
+    calls_k = [lambda: ops.take_rows(table, idx, 16, d, out_dtype=bf)]
     ms, issue = time_ms(torch, calls_k, 200)
+    # fresh rows every call: each call takes the next of more index sets
+    # than a timing runs calls. 200 calls a window: with thousands queued
+    # behind the held stream the launch queue fills, and the window then
+    # times the host's issue
+    cold = itertools.cycle(torch.randint(
+        0, v, (copies_for(SLOTS * words * 4), SLOTS), generator=gen,
+        device="cuda", dtype=torch.int32))
+    ms_cold = time_ms(torch, [lambda: ops.take_rows(
+        table, next(cold), 16, d, out_dtype=bf)], 200)[0]
     plain = time_ms(torch, [lambda: ref.take_rows_ref(
-        table, idx, 16, d, out_dtype=torch.bfloat16)], 20)[0]
-    dec = ref.unpack_ref(table, 16, d, torch.bfloat16)
+        table, idx, 16, d, out_dtype=bf)], 20)[0]
+    dec = ref.unpack_ref(table, 16, d, bf)
     lib = time_ms(torch, [lambda: F.embedding(idx, dec)], 200)[0]
-    b_ms, b_by = bound(SLOTS * table.shape[1] * 4 + idx.numel() * 4
+    lib_cold = time_ms(torch, [lambda: F.embedding(next(cold), dec)],
+                       200)[0]
+    b_ms, b_by = bound(idx.unique().numel() * words * 4 + idx.numel() * 4
                        + got.numel() * 2, 0.0)
     rec = {"kernel": "take_rows", "model": cfg.name, "table": [v, d],
            "rows": SLOTS,
            "calls_per_tick": 1, "max_err": 0.0, "tol": 0.0, "kernel_ms": ms,
-           "host_issue_ms": issue, "plain_ms": plain, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": lib}
+           "host_issue_ms": issue, "kernel_ms_cold": ms_cold,
+           "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib, "library_ms_cold": lib_cold}
     log(json.dumps(rec))
+    per_call = [rec]
+    if cfg.family != "moe":
+        per_call.append(_take_many_rows(torch, F, ops, ref, gen, cfg, table,
+                                        dec))
     del table, dec
     torch.cuda.empty_cache()
-    return tick_summary([rec])
+    summary = tick_summary(per_call)
+    if len(per_call) > 1:
+        summary["many_rows"] = per_call[1]
+    return summary
+
+
+def _take_many_rows(torch, F, ops, ref, gen, cfg, table, dec):
+    """The (B, T) embed of a whole batch, slots x max_seq_len rows of the
+    AF16 table, to bf16 and f32: bit for bit, and timed (index sets
+    rotated past the L2) beside the bound, the plain version and
+    ``F.embedding`` on the decoded table."""
+    v, d = cfg.vocab_size, cfg.d_model
+    rows, words = SLOTS * MAX_SEQ, table.shape[1]
+    sets = torch.randint(0, v, (copies_for(rows * (words * 4 + d * 2)),
+                                rows), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    dec32 = ref.unpack_ref(table, 16, d)
+    distinct = sum(ix.unique().numel() for ix in sets) / len(sets)
+    rec = {"kernel": "take_rows", "model": cfg.name, "case": "(B, T) embed",
+           "rows": rows, "distinct_rows": distinct, "calls_per_tick": 0,
+           "max_err": 0.0, "tol": 0.0}
+    for dt, name, table_lib in ((torch.bfloat16, "bf16", dec),
+                                (torch.float32, "f32", dec32)):
+        _expect_same_bits(torch, ops.take_rows(table, sets[0], 16, d,
+                                               out_dtype=dt),
+                          ref.take_rows_ref(table, sets[0], 16, d,
+                                            out_dtype=dt),
+                          f"take_rows {rows} rows -> {name}")
+        ms = time_ms(torch, [lambda ix=ix: ops.take_rows(
+            table, ix, 16, d, out_dtype=dt) for ix in sets], 100)[0]
+        b_ms, b_by = bound(distinct * words * 4 + rows * 4
+                           + rows * d * torch.finfo(dt).bits // 8, 0.0)
+        rec[name] = {
+            "kernel_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms,
+            "plain_ms": time_ms(torch, [lambda: ref.take_rows_ref(
+                table, sets[0], 16, d, out_dtype=dt)], 5)[0],
+            "library_ms": time_ms(torch, [lambda ix=ix: F.embedding(
+                ix, table_lib) for ix in sets], 100)[0]}
+    rec.update(kernel_ms=rec["bf16"]["kernel_ms"],
+               plain_ms=rec["bf16"]["plain_ms"],
+               bound_ms=rec["bf16"]["bound_ms"],
+               bound_by=rec["bf16"]["bound_by"],
+               library_ms=rec["bf16"]["library_ms"])
+    log(json.dumps(rec))
+    del dec32
+    return rec
 
 
 def check_packed_matmul_batched(torch, ops, ref, gen, cfg):
@@ -1394,7 +1481,8 @@ def main() -> int:
             "calls_per_tick": r["calls_per_tick"], "timing": timing,
             "launches_by_drain": {m: c[name] for m, c in launches.items()},
             "per_tick_by_model": per_tick,
-            **{k: r[k] for k in ("pack_call", "per_width") if k in r}})
+            **{k: r[k] for k in ("pack_call", "per_width", "many_rows")
+               if k in r}})
     log(f"total {time.perf_counter() - t_start:.0f} s; card {smi.stdout.strip()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the KV append, ``ops.pack`` and ``ops.unpack`` of two checkouts
-of the PyTorch + CUDA port on one card, in turns: A, B, B, A.
+"""Time the KV append, ``ops.pack``, ``ops.unpack`` and ``ops.take_rows``
+of two checkouts of the PyTorch + CUDA port on one card, in turns: A, B,
+B, A.
 
     python3 scripts/ab_pack_unpack.py OLD_TREE NEW_TREE
 
@@ -20,13 +21,19 @@ the card, with the stream held so that the events time the card's work
   AF16;
 - ``ops.unpack`` of qwen3-8b's ``w_up`` leaf (4096, 12288) at AF8,
   AF12 and AF16 to f32 and at AF16 to bf16, operands rotated past the
-  L2.
+  L2;
+- ``ops.take_rows`` of the AF16 embedding table to bf16: the decode
+  tick's 8 rows at both models' widths, the same rows every call (warm)
+  and fresh rows every call (cold), and for qwen3-8b the (B, T) embed
+  shape, 8 x 256 = 2,048 rows, to bf16 and f32, index sets rotated past
+  the L2.
 
 One JSON line per turn; the card's name and power limit first. Exits 2
 without a card.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -75,6 +82,32 @@ def turn(tree: str) -> dict:
         x = torch.randn((cs.SLOTS, hkv * d), generator=gen, device="cuda")
         out[f"{cfg.name} ops.pack"] = cs.time_ms(torch, [
             lambda: ops.pack(x, 16)], 200)
+        v, dm = cfg.vocab_size, cfg.d_model
+        table = ops.pack(torch.randn((v, dm), generator=gen, device="cuda")
+                         * 0.02, 16)
+        tick = torch.tensor([5, v - 1, 0, 77777, 5, 123, 9999, 5],
+                            dtype=torch.int32, device="cuda")
+        out[f"{cfg.name} take_rows tick"] = cs.time_ms(torch, [
+            lambda: ops.take_rows(table, tick, 16, dm,
+                                  out_dtype=torch.bfloat16)], 200)
+        cold = itertools.cycle(torch.randint(
+            0, v, (cs.copies_for(table[:cs.SLOTS].numel() * 4), cs.SLOTS),
+            generator=gen, device="cuda", dtype=torch.int32))
+        out[f"{cfg.name} take_rows tick cold"] = cs.time_ms(torch, [
+            lambda: ops.take_rows(table, next(cold), 16, dm,
+                                  out_dtype=torch.bfloat16)], 200)
+        if cfg.family != "moe":
+            rows = cs.SLOTS * cs.MAX_SEQ
+            sets = torch.randint(0, v, (cs.copies_for(rows * dm * 4), rows),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            for dt in (torch.bfloat16, torch.float32):
+                out[f"{cfg.name} take_rows {rows} rows "
+                    f"{str(dt).split('.')[-1]}"] = cs.time_ms(torch, [
+                        lambda ix=ix: ops.take_rows(table, ix, 16, dm,
+                                                    out_dtype=dt)
+                        for ix in sets], 100)
+        del table
     rows, n = 4096, 12288
     x = torch.randn((rows, n), generator=gen, device="cuda")
     for bits, dt in ((8, torch.float32), (12, torch.float32),

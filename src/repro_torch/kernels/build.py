@@ -39,7 +39,8 @@ SIGNATURES: Dict[str, List] = {
     "rt_unpack": [_P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "rt_convert": [_P, _P, _LL, _I, _P],
     "rt_truncate": [_P, _P, _LL, _I, _I, _P],
-    "rt_take_rows": [_P, _P, _I, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P],
+    "rt_take_rows": [_P, _P, _I, _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                     _P],
     "rt_packed_matmul": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_packed_matmul_batched": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P],

@@ -1,36 +1,54 @@
-// unpack: group-of-32 packed words -> decoded f32 or bf16 rows.
+// unpack and take_rows: group-of-32 packed words -> decoded rows, one
+// chunk stream read in order or through an index.
 //
-// Replaces the Pallas TPU kernel repro/kernels/unpack.py:unpack
-// (_unpack_kernel), the Value Extractor + Converter materialized path.
+// Replaces the Pallas TPU kernels repro/kernels/unpack.py:unpack
+// (_unpack_kernel), the Value Extractor + Converter materialized path,
+// and repro/kernels/take.py:take_rows (_take_kernel), the packed
+// ``embed`` path: gather rows of a table by index (any order, repeats,
+// out-of-range indices clamped into the table) and decode only those.
 //
 // Bound on this card: bytes. Each packed word is read once and each
 // decoded value written once: rows * n * (bits/8 + 4) bytes for f32
-// output (bits/8 + 2 for bf16). The decode is a few to a few dozen
-// integer operations per value, below the card's ratio of operations to
-// bytes.
+// output (bits/8 + 2 for bf16); take_rows reads the gathered rows and
+// the index. The decode is a few to a few dozen integer operations per
+// value, below the card's ratio of operations to bytes. A decode tick's
+// take_rows moves ~130 KB (8 rows of d = 4096): there the launch and two
+// dependent trips to memory, the index and then the row, are the cost.
 //
-// Design: a stream of chunks. Every Table 3 width is a multiple of 4, so
-// 8 consecutive codes that start a quarter group always start a word and
-// fill exactly B / 4 words; and a row's words follow the previous row's,
-// so the payload is one flat array of such chunks. A thread takes chunks
-// c, c + T, ... (T the grid's threads), UNROLL of them loaded before any
-// is decoded, so a warp's every load and store covers whole sectors and
-// an SM keeps tens of KB of loads in flight: a chunk is one 16-byte load at
+// Design: a stream of chunks. Every Table 3 width and every int width
+// (4..32, step 4) is a multiple of 4, so 8 consecutive codes that start
+// a quarter group always start a word and fill exactly U = B / 4 words,
+// and a packed row of ceil(n/32) * B words is cpr = ceil(n/32) * 4
+// chunks. Chunk c of the output is chunk j = c mod cpr of output row
+// r = c div cpr: it reads words [U j, U j + U) of source row r (unpack,
+// whose rows follow each other: one flat array of chunks) or of table
+// row clamp(idx[r]) (take_rows), and writes values [8j, 8j + 8) of
+// output row r. A thread takes chunks c, c + T, ... (T the grid's
+// threads), UNROLL of them loaded (their indices first) before any is
+// decoded, so a warp's every load and store covers whole sectors and an
+// SM keeps tens of KB of loads in flight: a chunk is one 16-byte load at
 // AF16, two at AF32, 8-byte loads at AF8 and AF24 and 4-byte loads at
 // AF12, AF20 and AF28 (the warp's span is contiguous, so the sectors are
 // whole), and 32 (f32) or 16 (bf16) output bytes stored 16 at a time
-// with the streaming hint. The grid is the blocks the SMs hold at once.
+// with the streaming hint. The grid is a block per 256 chunks, up to the
+// blocks the SMs hold at once: a count that fits in one wave gives every
+// chunk its own thread and no loop (a decode tick's 8 rows are 16 blocks
+// at d = 4096, 8 at d = 2048), a larger one streams. A thread finds the
+// (r, j) of its first chunk by one 32-bit division and steps it by T's
+// quotient and remainder, so no thread divides in the loop.
 // Decoding: AF16 by the hardware conversion, AF8 and AF12 by decode8's
 // f16 fields and one power of two (a chunk holding an inf or NaN code
 // takes decode_float), the other widths by decode_float; a NaN comes out
-// as decode_float's canonical NaN with its sign (bf16: sign | 0x7FC0).
-// When n is a multiple of 32 the output is flat too (chunk c writes
-// values [8c, 8c + 8); a full warp stages its 1 KB of f32 output in
-// shared memory, so that each store instruction covers 512 contiguous
-// bytes, not every other 16 of 1,024); otherwise a chunk finds its row by a division
-// and writes the codes below n, 16 bytes at a time where aligned. A base
-// that is not 16-byte aligned takes 4-byte loads and stores throughout.
-// Offsets are 64-bit: an embedding table has 151936 rows.
+// as decode_float's canonical NaN with its sign (bf16: sign | 0x7FC0, as
+// the reference writes it). Int kind sign- or zero-extends each code
+// (decode_int) to int32 or f32. When n is a multiple of 32 the output is
+// flat too (chunk c writes values [8c, 8c + 8); a full warp stages its
+// 1 KB of 32-bit output in shared memory, so that each store instruction
+// covers 512 contiguous bytes, not every other 16 of 1,024); otherwise a
+// chunk writes the codes of its row below n, 16 bytes at a time where
+// aligned. A base that is not 16-byte aligned takes 4-byte loads and
+// stores throughout. Offsets are 64-bit: an embedding table has 151936
+// rows.
 #include "codec.cuh"
 
 namespace {
@@ -38,8 +56,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 
+// What a chunk's codes decode to: Table 3 floats, or int codes sign- or
+// zero-extended and written as f32 or as int32.
+enum Kind { kFloat, kIntF32, kInt32 };
+
+// take_rows' source rows: output row r reads table row clamp(idx[r]).
+struct Gather {
+  const void* idx;   // int32, or int64 when idx64
+  long long rows;    // the table's rows
+  int idx64;
+};
+
 // The B / 4 words of a chunk, in the widest loads its alignment allows
-// (the chunk starts at byte 4 B c).
+// (the chunk starts at byte 4 B c of a row that starts 16-byte aligned).
 template <int U, bool VEC>
 __device__ __forceinline__ void load_chunk(const uint32_t* p, uint32_t (&u)[U]) {
   if constexpr (VEC && U % 4 == 0) {
@@ -60,10 +89,20 @@ __device__ __forceinline__ void load_chunk(const uint32_t* p, uint32_t (&u)[U]) 
   }
 }
 
-// decode_float of the chunk's 8 codes, exactly: NaNs canonical.
-template <int B>
-__device__ __forceinline__ void decode_chunk(const uint32_t (&u)[B / 4], float (&f)[8]) {
-  if constexpr (B == 8 || B == 12 || B == 16) {
+// The chunk's 8 outputs as 32-bit words. Float kind: decode_float of
+// each code, exactly, NaNs canonical. Int kind: decode_int, as a float
+// (kIntF32) or as its int32 bits (kInt32), which the stores move as
+// they are.
+template <int B, int KIND>
+__device__ __forceinline__ void decode_chunk(const uint32_t (&u)[B / 4], float (&f)[8],
+                                             bool is_signed) {
+  if constexpr (KIND != kFloat) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int32_t v = rt::decode_int<B>(rt::extract_code<B>(u, i), is_signed);
+      f[i] = KIND == kIntF32 ? (float)v : __int_as_float(v);
+    }
+  } else if constexpr (B == 8 || B == 12 || B == 16) {
     const bool special = rt::decode8<B>(u, f);   // always false at AF16
     if constexpr (B == 16) {
 #pragma unroll
@@ -92,7 +131,8 @@ __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// Stores values [0, valid) of f at out (16-byte stores when ``vec``).
+// Stores values [0, valid) of f at out (16-byte stores when ``vec``);
+// a 32-bit output takes f's words as they are.
 template <typename OutT>
 __device__ __forceinline__ void store_chunk(OutT* out, const float (&f)[8], int valid, bool vec) {
   if constexpr (sizeof(OutT) == 4) {
@@ -116,31 +156,62 @@ __device__ __forceinline__ void store_chunk(OutT* out, const float (&f)[8], int 
 }
 
 // FLAT: n % 32 == 0, chunk c writes out[8c, 8c + 8). VEC: both bases are
-// 16-byte aligned.
-template <int B, typename OutT, bool FLAT, bool VEC>
+// 16-byte aligned. GATHER: source rows through g (take_rows).
+template <int B, int KIND, typename OutT, bool FLAT, bool VEC, bool GATHER>
 __global__ void __launch_bounds__(kThreads, 4)
-unpack_kernel(const uint32_t* __restrict__ packed, OutT* __restrict__ out, long long chunks,
-              long long chunks_per_row, int n) {
+chunk_kernel(const uint32_t* __restrict__ packed, OutT* __restrict__ out, long long chunks,
+             int cpr, int n, Gather g, bool is_signed) {
   constexpr int U = B / 4;
-  // f32 output: a full warp's 32 chunks are 1 KB of output, staged here
-  // so that each store instruction covers 512 contiguous bytes
+  constexpr bool kRows = GATHER || !FLAT;    // the chunk's (r, j) is read
+  // 32-bit output: a full warp's 32 chunks are 1 KB of output, staged
+  // here so that each store instruction covers 512 contiguous bytes
   __shared__ float4 stage[FLAT && sizeof(OutT) == 4 ? kThreads / 32 : 1][64];
   const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long c0 = (long long)blockIdx.x * kThreads + threadIdx.x; c0 < chunks;
-       c0 += stride * kUnroll) {
+  const unsigned first = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned stride = gridDim.x * kThreads;   // a resident grid's threads
+  // (r, j) of the thread's next chunk, stepped by (dr, dj) = T divmod cpr
+  unsigned r = 0, dr = 0;
+  int j = 0, dj = 0;
+  if constexpr (kRows) {
+    r = first / (unsigned)cpr, j = (int)(first - r * (unsigned)cpr);
+    dr = stride / (unsigned)cpr, dj = (int)(stride - dr * (unsigned)cpr);
+  }
+  for (long long c0 = first; c0 < chunks; c0 += (long long)stride * kUnroll) {
+    unsigned row[kUnroll];
+    int col[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if constexpr (kRows) {
+        row[k] = r, col[k] = j;
+        r += dr, j += dj;
+        if (j >= cpr) j -= cpr, ++r;
+      }
+    }
+    long long src[kUnroll];                      // the source rows, indices in flight together
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if constexpr (GATHER) {
+        if (c0 + (long long)k * stride < chunks) {
+          long long s = g.idx64 ? __ldg(static_cast<const long long*>(g.idx) + row[k])
+                                : (long long)__ldg(static_cast<const int*>(g.idx) + row[k]);
+          src[k] = s < 0 ? 0 : (s >= g.rows ? g.rows - 1 : s);
+        }
+      }
+    }
     uint32_t u[kUnroll][U];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-      const long long c = c0 + k * stride;
-      if (c < chunks) load_chunk<U, VEC>(packed + c * U, u[k]);
+      const long long c = c0 + (long long)k * stride;
+      if (c >= chunks) break;
+      if constexpr (GATHER) load_chunk<U, VEC>(packed + (src[k] * cpr + col[k]) * U, u[k]);
+      else load_chunk<U, VEC>(packed + c * U, u[k]);
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
-      const long long c = c0 + k * stride;
+      const long long c = c0 + (long long)k * stride;
       if (c >= chunks) break;
       float f[8];
-      decode_chunk<B>(u[k], f);
+      decode_chunk<B, KIND>(u[k], f, is_signed);
       if constexpr (FLAT && sizeof(OutT) == 4) {
         if (c - lane + 31 < chunks) {            // the whole warp (uniform)
           float4* st = stage[threadIdx.x >> 5];
@@ -157,49 +228,64 @@ unpack_kernel(const uint32_t* __restrict__ packed, OutT* __restrict__ out, long 
       if constexpr (FLAT) {
         store_chunk<OutT>(out + c * 8, f, 8, VEC);
       } else {
-        const long long r = c / chunks_per_row;
-        const int col = (int)(c - r * chunks_per_row) * 8;
-        const int valid = min(8, n - col);
+        const int valid = min(8, n - 8 * col[k]);
         if (valid <= 0) continue;                 // past n in the last group
-        OutT* o = out + r * n + col;
+        OutT* o = out + (long long)row[k] * n + 8 * col[k];
         store_chunk<OutT>(o, f, valid, VEC && ((size_t)o & 15) == 0);
       }
     }
   }
 }
 
-template <int B, typename OutT, bool FLAT, bool VEC>
-void launch_as(const uint32_t* p, OutT* o, long long chunks, long long chunks_per_row, int n,
-               int sms, cudaStream_t s) {
+template <int B, int KIND, typename OutT, bool FLAT, bool VEC, bool GATHER>
+void launch_as(const uint32_t* p, OutT* o, long long chunks, int cpr, int n, const Gather& g,
+               bool is_signed, int sms, cudaStream_t s) {
   // resident blocks an SM holds, once per instantiation
   static const int per_sm = [] {
     int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, unpack_kernel<B, OutT, FLAT, VEC>,
-                                                  kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, chunk_kernel<B, KIND, OutT, FLAT, VEC, GATHER>, kThreads, 0);
     return b > 0 ? b : 1;
   }();
-  const long long want = (chunks + (long long)kThreads * kUnroll - 1) / ((long long)kThreads * kUnroll);
+  const long long want = (chunks + kThreads - 1) / kThreads;   // a chunk a thread
   const long long cap = (long long)sms * per_sm;
   const unsigned grid = (unsigned)(want < cap ? want : cap);
-  unpack_kernel<B, OutT, FLAT, VEC><<<grid, kThreads, 0, s>>>(p, o, chunks, chunks_per_row, n);
+  chunk_kernel<B, KIND, OutT, FLAT, VEC, GATHER><<<grid, kThreads, 0, s>>>(p, o, chunks, cpr, n,
+                                                                          g, is_signed);
 }
 
-template <int B, typename OutT>
-void launch(const void* packed, void* out, long long rows, int n, int aligned, int sms,
-            cudaStream_t s) {
-  const long long chunks_per_row = (n + 31) / 32 * 4;
-  const long long chunks = rows * chunks_per_row;
+// rows output rows of n values, from ``packed`` (unpack) or through g
+// from the table ``packed`` (take_rows, GATHER).
+template <int B, int KIND, typename OutT, bool GATHER>
+void launch(const void* packed, void* out, long long rows, int n, const Gather& g,
+            bool is_signed, int aligned, int sms, cudaStream_t s) {
+  const int cpr = (int)(((long long)n + 31) / 32 * 4);
+  const long long chunks = rows * cpr;
   const uint32_t* p = (const uint32_t*)packed;
   OutT* o = (OutT*)out;
   if (aligned && n % 32 == 0)
-    launch_as<B, OutT, true, true>(p, o, chunks, chunks_per_row, n, sms, s);
+    launch_as<B, KIND, OutT, true, true, GATHER>(p, o, chunks, cpr, n, g, is_signed, sms, s);
   else if (aligned)
-    launch_as<B, OutT, false, true>(p, o, chunks, chunks_per_row, n, sms, s);
+    launch_as<B, KIND, OutT, false, true, GATHER>(p, o, chunks, cpr, n, g, is_signed, sms, s);
   else
-    launch_as<B, OutT, false, false>(p, o, chunks, chunks_per_row, n, sms, s);
+    launch_as<B, KIND, OutT, false, false, GATHER>(p, o, chunks, cpr, n, g, is_signed, sms, s);
 }
 
 }  // namespace
+
+// Width dispatch for the int widths 4..32, step 4, as RT_FLOAT_WIDTHS.
+#define RT_INT_WIDTHS(bits, BODY)                                \
+  switch (bits) {                                                \
+    case 4:  { constexpr int B = 4;  BODY; } break;              \
+    case 8:  { constexpr int B = 8;  BODY; } break;              \
+    case 12: { constexpr int B = 12; BODY; } break;              \
+    case 16: { constexpr int B = 16; BODY; } break;              \
+    case 20: { constexpr int B = 20; BODY; } break;              \
+    case 24: { constexpr int B = 24; BODY; } break;              \
+    case 28: { constexpr int B = 28; BODY; } break;              \
+    case 32: { constexpr int B = 32; BODY; } break;              \
+    default: return (int)cudaErrorInvalidValue;                  \
+  }
 
 // packed (rows, ceil(n/32) * bits) int32 words; out (rows, n) float32
 // (out_dtype 0) or bfloat16 (out_dtype 1). ``aligned``: both bases are
@@ -209,10 +295,43 @@ extern "C" int rt_unpack(const void* packed, void* out, long long rows, int n, i
   if (out_dtype != 0 && out_dtype != 1) return (int)cudaErrorInvalidValue;
   if (rows == 0 || n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const Gather none{nullptr, 0, 0};
   if (out_dtype == 0) {
-    RT_FLOAT_WIDTHS(bits, (launch<B, float>(packed, out, rows, n, aligned, sms, s)));
+    RT_FLOAT_WIDTHS(bits, (launch<B, kFloat, float, false>(packed, out, rows, n, none, false,
+                                                          aligned, sms, s)));
   } else {
-    RT_FLOAT_WIDTHS(bits, (launch<B, __nv_bfloat16>(packed, out, rows, n, aligned, sms, s)));
+    RT_FLOAT_WIDTHS(bits, (launch<B, kFloat, __nv_bfloat16, false>(packed, out, rows, n, none,
+                                                                  false, aligned, sms, s)));
+  }
+  return (int)cudaGetLastError();
+}
+
+// table (rows, ceil(n/32) * bits) int32 words; idx (count,) int32, or
+// int64 when idx_is_64, clamped into [0, rows); out (count, n) float32
+// (out_kind 0), bfloat16 (1, float kind) or int32 (2, int kind).
+// ``aligned``: table and out are 16-byte aligned; ``sms``: the card's SM
+// count.
+extern "C" int rt_take_rows(const void* table, const void* idx, int idx_is_64, void* out,
+                            int out_kind, long long rows, long long count, int n, int bits,
+                            int int_kind, int is_signed, int aligned, int sms, void* stream) {
+  if (count == 0 || n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Gather g{idx, rows, idx_is_64};
+  const bool sg = is_signed != 0;
+  if (!int_kind && out_kind == 0) {
+    RT_FLOAT_WIDTHS(bits, (launch<B, kFloat, float, true>(table, out, count, n, g, sg,
+                                                         aligned, sms, s)));
+  } else if (!int_kind && out_kind == 1) {
+    RT_FLOAT_WIDTHS(bits, (launch<B, kFloat, __nv_bfloat16, true>(table, out, count, n, g, sg,
+                                                                 aligned, sms, s)));
+  } else if (int_kind && out_kind == 0) {
+    RT_INT_WIDTHS(bits, (launch<B, kIntF32, float, true>(table, out, count, n, g, sg, aligned,
+                                                        sms, s)));
+  } else if (int_kind && out_kind == 2) {
+    RT_INT_WIDTHS(bits, (launch<B, kInt32, int32_t, true>(table, out, count, n, g, sg, aligned,
+                                                         sms, s)));
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

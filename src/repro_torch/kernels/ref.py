@@ -42,10 +42,8 @@ def take_rows_ref(packed: torch.Tensor, indices: torch.Tensor, bits: int,
     rows = packed[indices.long()]
     codes = bitpack.unpack_groups(rows, bits, n)
     if kind == "float":
-        out = decode_float(codes, FLOAT_FORMATS[bits])
-    else:
-        out = decode_int(codes, bits, signed)
-    return out.to(out_dtype)
+        return _to_out(decode_float(codes, FLOAT_FORMATS[bits]), out_dtype)
+    return decode_int(codes, bits, signed).to(out_dtype)
 
 
 def pack_ref(x: torch.Tensor, bits: int) -> torch.Tensor:

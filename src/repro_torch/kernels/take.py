@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA ``take_rows`` kernel (csrc/take.cu).
+"""Wrapper of the CUDA ``take_rows`` kernel (``rt_take_rows`` in
+csrc/unpack.cu, on ``unpack``'s chunk body).
 
 Replaces ``repro/kernels/take.py:take_rows``: gather rows of a 2-D
 packed table by index (any order, duplicates allowed) and decode only
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.core.formats import FLOAT_FORMATS
 from repro_torch.kernels.build import (LaunchCount, check, library, require,
-                                       stream_ptr)
+                                       sm_count, stream_ptr)
 
 launches = LaunchCount()
 
@@ -44,11 +45,13 @@ def take_rows(packed: torch.Tensor, indices: torch.Tensor, bits: int, n: int,
         raise ValueError("take_rows: empty table")
     out = torch.empty((indices.shape[0], n), dtype=out_dtype,
                       device=packed.device)
+    aligned = packed.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     rc = library().rt_take_rows(
         packed.data_ptr(), indices.data_ptr(),
         int(indices.dtype == torch.int64), out.data_ptr(),
-        _OUT_KIND[out_dtype], packed.shape[0], words, indices.shape[0], n,
-        bits, int(kind == "int"), int(signed), stream_ptr(packed))
+        _OUT_KIND[out_dtype], packed.shape[0], indices.shape[0], n, bits,
+        int(kind == "int"), int(signed), int(aligned), sm_count(packed),
+        stream_ptr(packed))
     check(rc, "take_rows")
     launches.n += 1
     return out

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.core.formats import FLOAT_LADDER
+from repro_torch.core.formats import FLOAT_FORMATS, FLOAT_LADDER
 from repro_torch.kernels import ops, ref
 
 WIDTHS = FLOAT_LADDER
@@ -70,14 +70,11 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return t.float().contiguous().view(torch.int32).cpu().numpy()
 
 
-def _assert_same_bf16(got: torch.Tensor, want_f32: torch.Tensor) -> None:
-    """bf16 results equal bit for bit, NaN for NaN (the host conversion
-    drops a NaN's sign, the device conversion keeps it)."""
-    want = want_f32.bfloat16()
-    got = got.cpu()
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    keep = ~torch.isnan(want)
-    assert torch.equal(got[keep].view(torch.int16), want[keep].view(torch.int16))
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal bit for bit: -0.0 and NaN payloads count."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    view = torch.int16 if got.element_size() == 2 else torch.int32
+    assert torch.equal(got.cpu().view(view), want.cpu().view(view))
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +103,39 @@ def test_ref_take_rows_float_bit_exact(jref, bits):
     got = ref.take_rows_ref(torch.from_numpy(table), torch.from_numpy(idx),
                             bits, n)
     np.testing.assert_array_equal(_bits(got), want.view(np.int32))
+
+
+def _special_codes(rng, rows, n, bits) -> torch.Tensor:
+    """Random codes of a Table 3 width with NaNs (several payloads), ±inf,
+    subnormals and zeros of both signs mixed in, as a packed table."""
+    fmt = FLOAT_FORMATS[bits]
+    m, top = fmt.mantissa_bits, fmt.max_biased_exp << fmt.mantissa_bits
+    mags = [top | 1, top | (1 << (m - 1)), top | ((1 << m) - 1),    # NaNs
+            top, 1, (1 << m) - 1, 0, 1 << m]          # inf, subnormals, 0
+    special = [s | v for s in (0, 1 << (bits - 1)) for v in mags]
+    codes = rng.integers(0, 2**bits, (rows, n), dtype=np.uint64)
+    flat = codes.reshape(-1)
+    flat[rng.choice(flat.size, len(special), replace=False)] = special
+    return bitpack.pack_groups(
+        torch.from_numpy(codes.astype(np.uint32).view(np.int32)), bits)
+
+
+@pytest.mark.parametrize("bits", WIDTHS)
+def test_ref_take_rows_bf16_bit_exact(jref, bits):
+    """bf16 output bit for bit, NaN signs and payloads included (the
+    reference writes a NaN as its sign | 0x7FC0)."""
+    jax_ref, jnp = jref
+    rng = np.random.default_rng(150 + bits)
+    n = 45
+    table = _special_codes(rng, 4, n, bits)
+    idx = np.array([2, 0, 3, 2, 1, 2], np.int32)         # repeats, any order
+    want = np.asarray(jax_ref.take_rows_ref(
+        jnp.asarray(table.numpy().view(np.uint32)), jnp.asarray(idx), bits,
+        n, out_dtype=jnp.bfloat16))
+    got = ref.take_rows_ref(table, torch.from_numpy(idx), bits, n,
+                            out_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.int16))
 
 
 @pytest.mark.parametrize("bits", INT_WIDTHS)
@@ -378,7 +408,8 @@ def test_cuda_take_rows_float_bit_exact(cuda, bits):
         np.testing.assert_array_equal(_bits(got), _bits(want))
         got_b = ops.take_rows(table.to(cuda), idx.to(cuda), bits, n,
                               out_dtype=torch.bfloat16)
-        _assert_same_bf16(got_b, want)
+        _same_bits(got_b, ref.take_rows_ref(table, idx, bits, n,
+                                            out_dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("bits", INT_WIDTHS)
@@ -393,6 +424,58 @@ def test_cuda_take_rows_int_bit_exact(cuda, bits, signed):
     got = ops.take_rows(table.to(cuda), idx.to(cuda), bits, n, kind="int",
                         signed=signed, out_dtype=torch.int32)
     assert torch.equal(got.cpu(), want)
+
+
+# name: (table rows, n, gathered rows, 16-byte aligned table base). The
+# tick shapes give a chunk (8 codes) a thread; the others stream over a
+# resident grid, more than one round of 4 chunks a thread.
+TAKE_SHAPES = {"tick": (3000, 4096, 8, True),
+               "stream": (3000, 4096, 4096, True),
+               "ragged_tick": (500, 70, 8, False),
+               "ragged_aligned": (500, 70, 2048, True),
+               "ragged_stream": (500, 70, 100_000, False)}
+
+
+def _take_case(cuda, shape, bits, seed):
+    """A table of random words made on the card (every code, NaNs
+    included), its base 4 bytes off 16-byte alignment where the shape
+    says so, and int64 indices that overrun both ends."""
+    rows, n, count, aligned = TAKE_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    words = -(-n // 32) * bits
+    flat = torch.randint(0, 2**32, (rows * words + 1,), generator=gen,
+                         device=cuda).to(torch.int32)
+    table = (flat[:-1] if aligned else flat[1:]).view(rows, words)
+    assert (table.data_ptr() % 16 == 0) == aligned
+    idx = torch.randint(-3, rows + 3, (count,), generator=gen, device=cuda)
+    idx[:4] = torch.tensor([-1, rows, 0, rows - 1])
+    return table, idx, idx.clamp(0, rows - 1), n
+
+
+@pytest.mark.parametrize("shape", TAKE_SHAPES)
+@pytest.mark.parametrize("bits", WIDTHS)
+def test_cuda_take_rows_routes_float(cuda, shape, bits):
+    """Both routes, ragged n, an unaligned base, int64 and int32 indices,
+    out-of-range indices clamped: bit for bit against the plain version
+    and against the decoded table's rows, f32 and bf16."""
+    table, idx, clamped, n = _take_case(cuda, shape, bits, bits)
+    for dt in (torch.float32, torch.bfloat16):
+        want = ref.take_rows_ref(table, clamped, bits, n, out_dtype=dt)
+        for ix in (idx, idx.to(torch.int32)):
+            _same_bits(ops.take_rows(table, ix, bits, n, out_dtype=dt), want)
+        _same_bits(ops.unpack(table, bits, n, dt)[clamped], want)
+
+
+@pytest.mark.parametrize("shape", TAKE_SHAPES)
+@pytest.mark.parametrize("bits", INT_WIDTHS)
+def test_cuda_take_rows_routes_int(cuda, shape, bits):
+    table, idx, clamped, n = _take_case(cuda, shape, bits, 50 + bits)
+    for signed in (True, False):
+        for dt in (torch.int32, torch.float32):
+            want = ref.take_rows_ref(table, clamped, bits, n, kind="int",
+                                     signed=signed, out_dtype=dt)
+            _same_bits(ops.take_rows(table, idx, bits, n, kind="int",
+                                     signed=signed, out_dtype=dt), want)
 
 
 def test_cuda_decode_every_af16_code(cuda):
