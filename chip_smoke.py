@@ -23,12 +23,18 @@ Phases; any failure raises and the script exits non-zero:
    L2) and the bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s). kv_decode is also held to its plain version on AF8 and
    AF32 caches of qwen3-8b's tick shape (checked, not timed: no tick
-   runs them). take_rows is timed at the tick with the same rows every
+   runs them). The speculative draft's AF12 path at qwen3-8b's tick
+   shapes, each beside its plain version, bound and library call
+   (``per_width`` in the kernels line): kv_decode, paged_attention
+   (tick case) and the KV append (dense and paged) on AF12 caches, and
+   packed_matmul over the draft's whole weight pass at AF12 (wq, wk,
+   wv, wo, w_in, w_gate, w_out and lm_head; cuBLAS on the decoded bf16
+   weights). take_rows is timed at the tick with the same rows every
    call and with fresh rows (past the L2), held to its plain version on
    NaN codes to bf16 at all 7 widths, and for qwen3-8b also checked and
    timed at the (B, T) embed shape, slots x max_seq_len = 2,048 rows, to
    bf16 and f32 (``many_rows`` in its kernels entry). packed_matmul is also checked and timed at AF8 and AF12
-   on qwen3-8b's w_up shape (bf16 x; no tick runs them).
+   on qwen3-8b's w_up shape (bf16 x; no plain tick runs them).
    paged_attention is also held bit for bit to kv_decode over the same
    rows laid out dense, and against poison on the scrap page. ``pack``
    (``ops.pack``, f32 and bf16) also against its library call at AF16,
@@ -54,20 +60,36 @@ Phases; any failure raises and the script exits non-zero:
    tokens must agree and the pool must drain back to empty. Then serve
    full-width deepseek-moe-16b (28 layers, 64 routed experts top-6 and 2
    shared, the same widths): 8 requests with prompts of 8-32 tokens, 8
-   new tokens each, 8 slots, max_seq_len 64. For each drain the launch
+   new tokens each, 8 slots, max_seq_len 64. Before deepseek, on the
+   qwen3 dense drain's weights, two speculative drains of the same
+   requests (AF16 target, AF12 draft weights and AF12 draft KV, k = 4,
+   greedy), dense then paged: the tokens must be the plain dense
+   drain's, the counters the speculative path's (per tick k+1 draft
+   bodies with k heads and k+1 verify bodies with k+1 heads; the draft
+   prefills every position the target does) and a pool must drain to
+   empty; each prints ms per tick, host issue time per tick,
+   acceptance, tokens per slot-tick, ms per committed token beside the
+   plain drain's and peak memory. For each drain the launch
    counters are zeroed just before it and read just after; every kernel
    of its path must have launched, exactly as often as the path's shape
    says (one pack launch, the KV append, per layer and decode call),
    and unpack, convert and truncate not at all; the drain's last
    decode call is replayed under torch.profiler, as it runs and with
    the append as the eager composition, to count its device launches.
-4. cross-device parity, for each model at 2 layers in f32: decode_step
-   on the card (kernels) against the CPU (plain versions) with the same
-   packed weights; for deepseek also the number of routing choices
+4. cross-device parity, for each model at 2 layers in f32: one
+   decode_step (PARITY_STEPS; the CPU's plain versions take ~90 s a
+   full-width step) on the card (kernels) against the CPU (plain
+   versions) with the same packed weights; for deepseek also the number of routing choices
    (token, k) that differ between the two; for qwen3's reduced config
    (2 layers, f32) also the paged engine, card against CPU: the same
    tokens and pool counters, and every decode call of the card's drain
-   replayed on the CPU from the same state.
+   replayed on the CPU from the same state; and for qwen3's reduced
+   config the three speculative-serving paths: sampled drains (plain and
+   speculative) with a fixed seed, twice on the card, the same tokens;
+   one decode call with per-layer KV widths (16, 12), dense and paged,
+   card against CPU (logits, cache words, each width's attention
+   dispatched); greedy speculative drains, card tokens against the
+   CPU's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds every kernel's numbers. Without a card, or without the rest of the
@@ -93,12 +115,15 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 SLOTS, MAX_SEQ, NEW_TOKENS = 8, 256, 16
+SPEC_K = 4                       # drafted tokens per speculative tick
+PARITY_STEPS = 2                 # full-width decode steps held to the CPU
 # the qwen3-8b drains: a system prompt shared by every request, suffix
 # lengths from, to; the paged drain's page size
 SYSTEM_PROMPT, SUFFIXES, PAGE = 64, (8, 32), 16
 # the deepseek-moe-16b drain: (prompt lengths from, to), new tokens, max_seq_len
 MOE_PROMPTS, MOE_NEW_TOKENS, MOE_MAX_SEQ = (8, 32), 8, 64
 BF16_TOL = 2.0 ** -8             # one bf16 rounding of the f32 result
+FLOAT_MANTISSA = {16: 10, 12: 7}  # AF16 e5m10, AF12 e4m7
 
 KERNELS = {
     "packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
@@ -197,17 +222,38 @@ def tick_summary(per_call):
     }
 
 
+def width_summary(recs, calls_key):
+    """One width's numbers per pass: ``calls_key`` calls of each record
+    times its one-call numbers, summed."""
+    lib = [r["library_ms"] for r in recs]
+    return {
+        "max_abs_err": max(r["max_err"] for r in recs),
+        "ms": sum(r[calls_key] * r["kernel_ms"] for r in recs),
+        "plain_ms": sum(r[calls_key] * r["plain_ms"] for r in recs),
+        "bound_ms": sum(r[calls_key] * r["bound_ms"] for r in recs),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in recs)
+        else "operations",
+        "library_ms": None if None in lib else sum(
+            r[calls_key] * r["library_ms"] for r in recs),
+        "calls": sum(r[calls_key] for r in recs),
+    }
+
+
 def check_packed_matmul(torch, ops, ref, gen, cfg):
     """Every 2-D product of a decode tick, M = slots, bf16 x (f32 for the
     MoE router), AF16 W; for qwen3-8b also f32 x, the tied-head
-    orientation, and AF8 and AF12 W on the w_up shape (no tick runs
-    them)."""
+    orientation, AF8 W on the w_up shape (no tick runs it) and every
+    product of the speculative draft's pass at AF12 (the seven per-layer
+    weights, four shapes, and lm_head), beside cuBLAS on the decoded
+    bf16 weights."""
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     hq = cfg.n_heads * cfg.resolved_head_dim
     hkv = cfg.n_kv_heads * cfg.resolved_head_dim
     L = cfg.n_layers
     bf, f32 = torch.bfloat16, torch.float32
-    # (K, N, calls per decode tick, transpose, x dtype, bits)
+    # (K, N, calls per decode tick, transpose, x dtype, bits); the AF12
+    # cases are the draft's, with their calls per draft pass
+    draft_calls = {}
     if cfg.family == "moe":
         fs = cfg.moe_d_ff * cfg.n_shared_experts
         cases = [(d, hq, 2 * L, False, bf, 16),           # wq, wo
@@ -224,8 +270,10 @@ def check_packed_matmul(torch, ops, ref, gen, cfg):
                  (d, v, 1, False, bf, 16),                # lm_head
                  (d, hkv, 0, False, f32, 16),             # f32 activations
                  (d, d, 0, True, bf, 16),                 # tied head
-                 (d, f, 0, False, bf, 8),                 # w_up at AF8
-                 (d, f, 0, False, bf, 12)]                # and at AF12
+                 (d, f, 0, False, bf, 8)]                 # w_up at AF8
+        draft_calls = {(d, hq): 2 * L, (d, hkv): 2 * L, (d, f): 2 * L,
+                       (f, d): L, (d, v): 1}
+        cases += [(k, n, 0, False, bf, 12) for k, n in draft_calls]
     per_call = []
     for k, n, calls, transpose, xdt, bits in cases:
         wshape = (n, k) if transpose else (k, n)
@@ -263,7 +311,9 @@ def check_packed_matmul(torch, ops, ref, gen, cfg):
                            2.0 * SLOTS * n * k)
         rec = {"kernel": "packed_matmul", "model": cfg.name, "K": k, "N": n,
                "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
-               "bits": bits, "calls_per_tick": calls, "max_err": err,
+               "bits": bits, "calls_per_tick": calls,
+               "draft_calls_per_pass": draft_calls.get((k, n), 0)
+               if bits == 12 else 0, "max_err": err,
                "tol": tol, "kernel_ms": ms, "host_issue_ms": issue,
                "plain_ms": plain, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib}
@@ -277,7 +327,15 @@ def check_packed_matmul(torch, ops, ref, gen, cfg):
     if len(w_up) > 1:
         log(f"packed_matmul {cfg.name} w_up ({d}, {f}), bf16 x, us per call: "
             + ", ".join(f"AF{b} {w_up[b] * 1e3:.2f}" for b in sorted(w_up)))
-    return tick_summary(per_call)
+    summary = tick_summary(per_call)
+    draft = [r for r in per_call if r["draft_calls_per_pass"]]
+    if draft:
+        summary["per_width"] = {"AF12 draft pass": width_summary(
+            draft, "draft_calls_per_pass")}
+        log(f"packed_matmul {cfg.name} AF12 draft pass (one decode body "
+            "with its head): " + json.dumps(
+                summary["per_width"]["AF12 draft pass"]))
+    return summary
 
 
 def _special_rows(torch, gen, rows, n):
@@ -431,15 +489,19 @@ def check_pack(torch, ops, ref, gen, cfg):
     mp = seq // PAGE
     tables = [[1 + mp * b + j for j in range(mp)] for b in range(SLOTS)]
     eager = eager_append(ops, ref)
-    w = -(-d // 32) * 16
-    for layout, calls in (("dense", cfg.n_layers), ("paged", 0)):
+    per_width = {}
+    cases = [("dense", cfg.n_layers, 16), ("paged", 0, 16)]
+    if cfg.family != "moe":          # the speculative draft's AF12 cache
+        cases += [("dense", 0, 12), ("paged", 0, 12)]
+    for layout, calls, bits in cases:
+        w = -(-d // 32) * bits
         (kc, vc), kv_len, table = _append_case(
             torch, gen, layout, hkv, w, seq if layout == "dense" else PAGE,
             lens, tables)
         k, v = (torch.randn((SLOTS, 1, hkv, d), generator=gen,
                             device="cuda").to(torch.bfloat16)[:, 0]
                 for _ in range(2))
-        args = (kc, vc, k, v, kv_len, 16, table)
+        args = (kc, vc, k, v, kv_len, bits, table)
         ms, issue = time_ms(torch, [lambda: ops.append_kv_rows(*args)], 200)
         e_ms, e_issue = time_ms(torch, [lambda: eager(*args)], 200)
         plain = time_ms(torch, [lambda: ref.append_kv_rows_ref(*args)], 20)[0]
@@ -449,32 +511,38 @@ def check_pack(torch, ops, ref, gen, cfg):
             + (SLOTS * 4 if table is not None else 0)
         b_ms, b_by = bound(nbytes, 0.0)
         rec = {"kernel": "pack", "case": f"append {layout}", "model": cfg.name,
-               "rows": [SLOTS, hkv, d], "bits": 16, "calls_per_tick": calls,
+               "rows": [SLOTS, hkv, d], "bits": bits, "calls_per_tick": calls,
                "max_err": 0.0, "tol": 0.0, "kernel_ms": ms,
                "host_issue_ms": issue, "eager_ms": e_ms,
                "eager_host_issue_ms": e_issue, "plain_ms": plain,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         log(json.dumps(rec))
         per_call.append(rec)
+        if bits != 16:
+            per_width[f"AF{bits} append {layout}"] = width_summary(
+                [dict(rec, calls=1)], "calls")
     summary = tick_summary(per_call)
     summary["pack_call"] = {"ms": per_call[0]["kernel_ms"],
                             "library_ms": per_call[0]["library_ms"]}
+    if per_width:
+        summary["per_width"] = per_width
     return summary
 
 
 def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
     """q (slots, heads, head_dim) bf16 against an AF16 cache of ``seq``
     rows (the drain's max_seq_len), mixed lengths including 0 and one
-    past S; timed there. For qwen3-8b also AF8 and AF32 caches of the
-    same shape, checked only (no tick runs them)."""
+    past S; timed there. For qwen3-8b also an AF12 cache of the same
+    shape (the speculative draft's), timed, and AF8 and AF32 caches,
+    checked only (no tick runs them)."""
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     kv_len = torch.tensor([0, 1, 7, seq // 4, seq * 25 // 64, seq * 25 // 32,
                            seq, seq + 3], dtype=torch.int32, device="cuda")
     q = torch.randn((SLOTS, h, d), generator=gen,
                     device="cuda").to(torch.bfloat16)
     kv_shape = (SLOTS, seq, hkv, d)
-    checked = []
-    for bits in ((8, 32, 16) if cfg.family != "moe" else (16,)):
+    per_call, per_width = [], {}
+    for bits in ((8, 32, 12, 16) if cfg.family != "moe" else (16,)):
         kp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"),
                       bits)
         vp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"),
@@ -487,42 +555,48 @@ def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
         if err > tol or got[0].any().item():
             raise AssertionError(f"kv_decode AF{bits}: max err {err} > tol "
                                  f"{tol}, or kv_len == 0 not zero")
-        if bits != 16:
+        if bits not in (12, 16):
             log(json.dumps({"kernel": "kv_decode", "model": cfg.name,
                             "bits": bits, "q": list(q.shape), "S": seq,
                             "max_err": err, "tol": tol, "checked_only": True}))
-            checked.append({"max_err": err, "calls_per_tick": 0})
-    cache_bytes = kp.numel() * 4 * 2
-    reps = [(kp, vp)] + [(kp.clone(), vp.clone())
-                         for _ in range(copies_for(cache_bytes) - 1)]
-    calls_k = [lambda r=r: ops.kv_decode(q, r[0], r[1], kv_len, 16, d)
-               for r in reps]
-    ms, issue = time_ms(torch, calls_k, 100)
-    plain = time_ms(torch, [lambda: ref.kv_decode_ref(q, kp, vp, 16, d,
-                                                      kv_len)], 10)[0]
-    group = h // hkv
-    kd = (ref.unpack_ref(kp, 16, d, torch.bfloat16).transpose(1, 2)
-          .repeat_interleave(group, dim=1).contiguous())
-    vd = (ref.unpack_ref(vp, 16, d, torch.bfloat16).transpose(1, 2)
-          .repeat_interleave(group, dim=1).contiguous())
-    mask = (torch.arange(seq, device="cuda")[None, None, None, :]
-            < kv_len[:, None, None, None])
-    q4 = q[:, :, None, :]
-    lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask)], 100)[0]
-    live = kv_len.clamp(max=seq).sum().item()
-    row_bytes = hkv * kp.shape[-1] * 4
-    b_ms, b_by = bound(2 * live * row_bytes + 2 * q.numel() * 2 + 4 * SLOTS,
-                       4.0 * h * d * live)
-    calls = cfg.n_layers
-    rec = {"kernel": "kv_decode", "model": cfg.name, "q": list(q.shape),
-           "S": seq,
-           "kv_len": kv_len.tolist(), "calls_per_tick": calls,
-           "max_err": err, "tol": tol, "kernel_ms": ms,
-           "host_issue_ms": issue, "plain_ms": plain,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-    log(json.dumps(rec))
-    return tick_summary([rec] + checked)
+            per_call.append({"max_err": err, "calls_per_tick": 0})
+            continue
+        cache_bytes = kp.numel() * 4 * 2
+        reps = [(kp, vp)] + [(kp.clone(), vp.clone())
+                             for _ in range(copies_for(cache_bytes) - 1)]
+        calls_k = [lambda r=r: ops.kv_decode(q, r[0], r[1], kv_len, bits, d)
+                   for r in reps]
+        ms, issue = time_ms(torch, calls_k, 100)
+        plain = time_ms(torch, [lambda: ref.kv_decode_ref(
+            q, kp, vp, bits, d, kv_len)], 10)[0]
+        group = h // hkv
+        kd, vd = (ref.unpack_ref(x, bits, d, torch.bfloat16).transpose(1, 2)
+                  .repeat_interleave(group, dim=1).contiguous()
+                  for x in (kp, vp))
+        mask = (torch.arange(seq, device="cuda")[None, None, None, :]
+                < kv_len[:, None, None, None])
+        q4 = q[:, :, None, :]
+        lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask)], 100)[0]
+        live = kv_len.clamp(max=seq).sum().item()
+        row_bytes = hkv * kp.shape[-1] * 4
+        b_ms, b_by = bound(2 * live * row_bytes + 2 * q.numel() * 2
+                           + 4 * SLOTS, 4.0 * h * d * live)
+        rec = {"kernel": "kv_decode", "model": cfg.name, "bits": bits,
+               "q": list(q.shape), "S": seq, "kv_len": kv_len.tolist(),
+               "calls_per_tick": cfg.n_layers if bits == 16 else 0,
+               "max_err": err, "tol": tol, "kernel_ms": ms,
+               "host_issue_ms": issue, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        log(json.dumps(rec))
+        per_call.append(rec)
+        if bits == 12:
+            per_width["AF12"] = width_summary([dict(rec, calls=1)], "calls")
+        del reps, kd, vd
+    summary = tick_summary(per_call)
+    if per_width:
+        summary["per_width"] = per_width
+    return summary
 
 
 def _paged_layout(np, lens, page, max_pages, shared):
@@ -568,7 +642,8 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
     within tolerance, bit for bit to kv_decode over the same rows laid
     out dense, and to itself with a clean scrap page. Timed at AF16 on
     that case and on a decode tick's shape (every slot sharing the
-    64-token system prompt's pages, lengths near the drain's)."""
+    64-token system prompt's pages, lengths near the drain's), there
+    also at AF12 (the speculative draft's cache)."""
     import numpy as np
 
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -578,7 +653,7 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
              ("tick", [72, 80, 88, 96, 104, 112, 76, 92], MAX_SEQ // PAGE,
               [(0, b, SYSTEM_PROMPT // PAGE) for b in range(1, SLOTS)],
               cfg.n_layers)]
-    per_call = []
+    per_call, per_width = [], {}
     for name, lens, max_pages, shared, calls in cases:
         table_np, pool_pages, n_live = _paged_layout(np, lens, PAGE,
                                                      max_pages, shared)
@@ -588,7 +663,7 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
                         device="cuda").to(torch.bfloat16)
         rows = torch.randn((2, pool_pages, PAGE, hkv * d), generator=gen,
                            device="cuda")
-        for bits in ((16, 8, 0) if name == "check" else (16,)):
+        for bits in ((16, 8, 0) if name == "check" else (16, 12)):
             poison, clean = rows.clone(), rows.clone()
             poison[:, 0] = 10.0 if bits else 1e4
             clean[:, 0] = 0.0
@@ -624,7 +699,7 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
             log(json.dumps({"kernel": "paged_attention", "case": name,
                             "bits": bits, "max_err": err, "tol": tol,
                             "bit_identical_to_kv_decode": bool(bits)}))
-            if bits != 16:
+            if bits not in (12, 16):
                 per_call.append({"max_err": err, "calls_per_tick": 0})
                 continue
             page_bytes = PAGE * hkv * kp.shape[-1] * 4
@@ -632,13 +707,13 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
             reps = [(kp, vp)] + [(kp.clone(), vp.clone())
                                  for _ in range(copies_for(pool_bytes) - 1)]
             calls_k = [lambda r=r: ops.paged_attention(q, r[0], r[1], table,
-                                                       kv_len, 16, d)
+                                                       kv_len, bits, d)
                        for r in reps]
             ms, issue = time_ms(torch, calls_k, 100)
             plain = time_ms(torch, [lambda: ref.paged_attention_ref(
-                q, kp, vp, table, kv_len, 16, d)], 10)[0]
+                q, kp, vp, table, kv_len, bits, d)], 10)[0]
             group = h // hkv
-            kd, vd = (ref.unpack_ref(ref.gather_pages_ref(x, table), 16, d,
+            kd, vd = (ref.unpack_ref(ref.gather_pages_ref(x, table), bits, d,
                                      torch.bfloat16).transpose(1, 2)
                       .repeat_interleave(group, dim=1).contiguous()
                       for x in (kp, vp))
@@ -654,19 +729,25 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
                                + 2 * q.numel() * 2 + entries * 4 + 4 * SLOTS,
                                4.0 * h * d * rows_live)
             rec = {"kernel": "paged_attention", "model": cfg.name,
-                   "case": name, "q": list(q.shape), "page": PAGE,
+                   "case": name, "bits": bits, "q": list(q.shape),
+                   "page": PAGE,
                    "max_pages": table.shape[1], "kv_len": lens,
                    "live_pages": n_live, "rows_read": rows_read,
-                   "calls_per_tick": calls,
+                   "calls_per_tick": calls if bits == 16 else 0,
                    "max_err": err, "tol": tol, "kernel_ms": ms,
                    "host_issue_ms": issue, "plain_ms": plain,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
             log(json.dumps(rec))
             per_call.append(rec)
+            if bits == 12:
+                per_width[f"AF12 {name}"] = width_summary(
+                    [dict(rec, calls=1)], "calls")
             del reps, kd, vd
         del rows, pools
         torch.cuda.empty_cache()
-    return tick_summary(per_call)
+    summary = tick_summary(per_call)
+    summary["per_width"] = per_width
+    return summary
 
 
 def check_take_rows(torch, F, ops, ref, gen, cfg):
@@ -1030,24 +1111,33 @@ def check_unpack_convert(torch, ops, ref, gen, cfg):
 # phase 3: serve full-width qwen3-8b and deepseek-moe-16b
 # ---------------------------------------------------------------------------
 
-def path_launches(cfg, ticks: int, positions: int, paged: bool = False):
+def path_launches(cfg, ticks: int, positions: int, paged: bool = False,
+                  spec_k: int = 0):
     """Kernel launches of a drain with ``ticks`` decode ticks and
     ``positions`` prefill positions, by the code of the decode body: per
     layer q, k, v and o products, the MLP's three (dense) or the router
     and the shared experts' three (moe), the three expert banks (moe),
     one KV append (a pack launch for K and V) and one attention
-    (kv_decode, or paged_attention on a paged cache); per position one embedding gather; per tick one
-    lm_head product (prefill drops the logits)."""
+    (kv_decode, or paged_attention on a paged cache); per body one
+    embedding gather; a head (lm_head product) per body that makes
+    logits (prefill drops them). A plain tick is one body with a head.
+    A speculative tick (``spec_k`` = k) is k+1 draft bodies with k heads
+    (the last only appends d_k's KV row) and k+1 verify bodies with k+1
+    heads, and the draft prefills every position the target does."""
     L = cfg.n_layers
     moe = cfg.family == "moe"
     pm = 8 if moe else 7
-    steps = ticks + positions
-    return {"packed_matmul": steps * pm * L + ticks,
-            "pack": steps * L,
-            "kv_decode": 0 if paged else steps * L,
-            "take_rows": steps,
-            "packed_matmul_batched": steps * 3 * L if moe else 0,
-            "paged_attention": steps * L if paged else 0,
+    if spec_k:
+        bodies = ticks * 2 * (spec_k + 1) + 2 * positions
+        heads = ticks * (2 * spec_k + 1)
+    else:
+        bodies, heads = ticks + positions, ticks
+    return {"packed_matmul": bodies * pm * L + heads,
+            "pack": bodies * L,
+            "kv_decode": 0 if paged else bodies * L,
+            "take_rows": bodies,
+            "packed_matmul_batched": bodies * 3 * L if moe else 0,
+            "paged_attention": bodies * L if paged else 0,
             "unpack": 0, "convert": 0, "truncate": 0}
 
 
@@ -1090,7 +1180,8 @@ def device_launches(torch, call):
 def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
           paged: bool = False, params=None):
     """Drain ``prompts`` through a full-width engine (on ``params`` when
-    given); returns (launch counts, outputs, engine)."""
+    given); returns (launch counts, outputs, engine, the drain's
+    numbers)."""
     from repro_torch import obs
     from repro_torch.kernels import ops, ref
     from repro_torch.serving import ServeEngine
@@ -1188,7 +1279,107 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     if paged and (stats["pool_pages_used"] or stats["pool_pages_reserved"]):
         raise AssertionError(f"{cfg.name} paged: the pool did not drain "
                              f"back to empty: {res}")
-    return counts, outs, eng
+    # per committed token from the serve.tick spans, the speculative
+    # drains' yardstick
+    res["ms_per_token"] = sum(r["dur_s"] * 1e3 for r in
+                              tracer.events("serve.tick")) / stats["tokens"]
+    return counts, outs, eng, res
+
+
+def serve_speculative(torch, cfg, prompts, params, paged, plain):
+    """Drain ``prompts`` through the full-width speculative engine on
+    ``params`` (the plain dense drain's packed weights): AF16 target,
+    AF12 draft weights and KV, k = SPEC_K, greedy. Its tokens must be
+    the plain drain's (``plain``: its outputs and numbers), the counters
+    the path's, and a paged pool must drain to empty. Per tick: the
+    tick's time (span ``serve.tick``, the plain drain's yardstick too),
+    and the host's time to issue the draft and the verify calls. Neither
+    is timed with a synchronization of its own: the draft call follows
+    the tick's read of the lengths and the verify call precedes its read
+    of the tokens, so the device runs the draft while the host issues
+    the verify, as it does without the timing. Returns the launch
+    counts."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SpeculativeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tracer = obs.Tracer()
+    eng = SpeculativeEngine(cfg, max_seq_len=MAX_SEQ, max_slots=SLOTS,
+                            pack_weights=True, tracer=tracer, params=params,
+                            paged=paged, kv_page_size=PAGE, k=SPEC_K)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mode = "paged" if paged else "dense"
+    issue = {"draft": [], "verify": []}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            issue[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    eng._draft_k = timed("draft", eng._draft_k)
+    eng.lm.verify_step = timed("verify", eng.lm.verify_step)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    del eng._draft_k, eng.lm.verify_step
+    outs = [eng.result(r) for r in rids]
+    tick_ms = [r["dur_s"] * 1e3 for r in tracer.events("serve.tick")]
+    positions = sum(r["attrs"]["chunk"]
+                    for r in tracer.events("serve.prefill"))
+    ticks = stats["spec_ticks"]
+    expect = path_launches(cfg, ticks, positions, paged, spec_k=SPEC_K)
+    host = [a + b for a, b in zip(issue["draft"], issue["verify"])]
+    res = {"model": cfg.name, "kv": mode, "k": SPEC_K,
+           "draft_bits": stats["draft_bits"],
+           "draft_kv_bits": stats["draft_kv_bits"],
+           "engine_init_s": init_s,
+           "target_weight_gb": eng.weight_read_bytes / 1e9,
+           "draft_weight_gb": eng.draft_weight_read_bytes / 1e9,
+           "tokens": stats["tokens"], "spec_ticks": ticks,
+           "prefill_positions": positions, "wall_s": wall,
+           "ms_per_spec_tick_mean": sum(tick_ms) / len(tick_ms),
+           "ms_per_spec_tick_min": min(tick_ms),
+           "host_issue_ms_per_tick_mean": sum(host) / len(host),
+           "draft_issue_ms_mean": sum(issue["draft"]) / len(host),
+           "verify_issue_ms_mean": sum(issue["verify"]) / len(host),
+           "acceptance_rate": stats["acceptance_rate"],
+           "committed_per_slot_tick": stats["committed_per_slot_tick"],
+           "ms_per_committed_token": sum(tick_ms) / stats["tokens"],
+           "plain_dense_ms_per_token": plain["ms_per_token"],
+           "prefill_s": sum(r["dur_s"] for r in
+                            tracer.events("serve.prefill")),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "launches_expected": expect}
+    log("speculative: " + json.dumps(res))
+    if outs != plain["outs"]:
+        raise AssertionError(f"{cfg.name} speculative {mode}: tokens differ "
+                             f"from the plain dense drain's: {outs} != "
+                             f"{plain['outs']}")
+    for name, n in expect.items():
+        if n and not counts[name]:
+            raise AssertionError(f"{name} never launched on the {cfg.name} "
+                                 f"speculative {mode} path")
+    if counts != expect:
+        raise AssertionError(f"{cfg.name} speculative {mode}: launch counts "
+                             f"{counts} != path {expect}")
+    if paged and (stats["pool_pages_used"] or stats["pool_pages_reserved"]):
+        raise AssertionError(f"{cfg.name} speculative paged: the pool did "
+                             f"not drain back to empty: {stats}")
+    log(f"{cfg.name} speculative {mode}: tokens identical to the plain dense "
+        f"drain's; {res['ms_per_committed_token']:.2f} ms per committed "
+        f"token against the plain drain's {plain['ms_per_token']:.2f}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1196,7 +1387,8 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
 # ---------------------------------------------------------------------------
 
 def parity(torch, np, cfg):
-    """Two decode steps of ``cfg`` cut to 2 layers in f32, on the card
+    """PARITY_STEPS decode steps of ``cfg`` cut to 2 layers in f32 (at
+    full width the CPU's plain versions take ~90 s a step), on the card
     against the CPU with the same packed weights: max abs logit error
     (tolerance 1e-3, argmax equal). For the MoE family also the routing
     choices (token, k) that ``blocks.route`` gave every MoE call on both
@@ -1227,7 +1419,7 @@ def parity(torch, np, cfg):
     worst = 0.0
     B.route = recording_route
     try:
-        for step in range(2):
+        for step in range(PARITY_STEPS):
             toks = torch.from_numpy(rng.integers(0, small.vocab_size,
                                                  (SLOTS, 1)))
             lg, st_g = lm_g.decode_step(params, st_g, toks.cuda())
@@ -1248,10 +1440,11 @@ def parity(torch, np, cfg):
     routing = ""
     if small.family == "moe":
         g, c = torch.cat(choices["cuda"]), torch.cat(choices["cpu"])
-        assert g.shape == c.shape and g.shape[0] == 2 * 2 * SLOTS
+        assert g.shape == c.shape and g.shape[0] == PARITY_STEPS * 2 * SLOTS
         routing = (f"; routing choices differing card vs CPU: "
                    f"{int((g != c).sum())} of {g.numel()}")
-    log(f"parity: {small.name} 2 layers f32, 2 decode steps card vs CPU: "
+    log(f"parity: {small.name} 2 layers f32, {PARITY_STEPS} decode step(s) "
+        "card vs CPU: "
         f"max abs logit err {worst:.3g} (tol 1e-3), argmax equal{routing} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1324,6 +1517,133 @@ def paged_parity(torch, np, cfg):
         f", table uploads {st['table_uploads']}); {len(calls)} decode calls "
         f"replayed on the CPU: max abs logit err {worst:.3g} (tol 1e-3) "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def speculative_parity(torch, np, cfg):
+    """The three paths of speculative serving on ``cfg``'s reduced config
+    (2 layers, narrow widths, f32), on the card against the CPU with the
+    same AF16 packed weights: (1) sampled drains with a fixed
+    sample_seed, plain and speculative, each run twice on the card:
+    the same tokens both times; (2) per-layer KV widths (16, 12): one
+    decode call from the same state, dense and paged, card against CPU:
+    logits within 1e-3, every segment's cache words equal but those of
+    the row each slot appends at ``len`` (through the page table when
+    paged), which may round a code the other way (K and V come from the
+    kernels on one side and the plain versions on the other) and must
+    decode within a code step, and the dispatch records show
+    each width's attention kernel; (3) greedy
+    speculative drains (k = 2, AF12 draft), dense and paged: the card's
+    tokens equal the CPU's."""
+    from repro_torch.core.compress import repack, uniform_plan
+    from repro_torch.core.tensor_store import tree_to
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import ServeEngine, SpeculativeEngine
+
+    small = dataclasses.replace(cfg.reduced(), n_layers=2, dtype="float32")
+    d = small.resolved_head_dim
+    params = LM(small, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(3))
+    params = repack(params, uniform_plan(params, 16))
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(1, small.vocab_size, n)]
+               for n in (5, 1, 12)]
+    kw = dict(max_seq_len=32, max_slots=4, pack_weights=True, kv_page_size=8)
+    t0 = time.perf_counter()
+
+    def drain(cls, dev, **extra):
+        eng = cls(small, params=tree_to(params, dev), device=dev,
+                  **dict(kw, **extra))
+        rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        stats = eng.run_until_drained()
+        return [eng.result(r) for r in rids], stats
+
+    sampled = {}
+    for cls, extra in ((ServeEngine, {}), (SpeculativeEngine, {"k": 2})):
+        runs = [drain(cls, "cuda", greedy=False, sample_seed=7, **extra)[0]
+                for _ in range(2)]
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{cls.__name__} sampled drains with one "
+                                 f"sample_seed differ on the card: {runs}")
+        sampled[cls.__name__] = runs[0]
+
+    widths = (16, 12)
+    wcfg = dataclasses.replace(small, compression=dataclasses.replace(
+        small.compression, kv_bits=max(widths), kv_layer_bits=widths))
+    worst = 0.0
+    for paged in (False, True):
+        lms = {d: LM(wcfg, device=d) for d in ("cuda", "cpu")}
+        st = (lms["cpu"].init_paged_decode_state(4, 32, 8, 16) if paged
+              else lms["cpu"].init_decode_state(4, 32))
+        # cache rows of random values packed at each segment's width
+        cpu_gen = torch.Generator().manual_seed(5)
+        for seg, (_, _, bits) in zip(st["kv"], wcfg.kv_segments()):
+            for name in ("k", "v"):
+                x = torch.randn(seg[name].shape[:-1] + (d,), generator=cpu_gen)
+                seg[name].copy_(ref.pack_ref(x, bits))
+        st["len"] = torch.tensor([0, 3, 17, 31], dtype=torch.int32)
+        if paged:
+            st["table"] = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
+        toks = torch.from_numpy(rng.integers(0, small.vocab_size, (4, 1)))
+        st_g = tree_to(st, "cuda")
+        ops.DISPATCH_RECORDS.clear()
+        lg, st_g = lms["cuda"].decode_step(tree_to(params, "cuda"), st_g,
+                                           toks.cuda())
+        attn = "paged_attention" if paged else "kv_decode"
+        seen = sorted(r.bits for r in ops.DISPATCH_RECORDS if r.op == attn)
+        lc, st_c = lms["cpu"].decode_step(tree_to(params, "cpu"), st, toks)
+        err = (lg.cpu() - lc).abs().max().item()
+        worst = max(worst, err)
+        if not (err <= 1e-3 and torch.isfinite(lc).all().item()
+                and seen == sorted(widths)):
+            raise AssertionError(f"per-layer widths {widths} paged={paged}: "
+                                 f"max err {err} > 1e-3 or {attn} widths "
+                                 f"{seen}")
+        # the appended rows pack K and V projected by the kernels on one
+        # side and the plain versions on the other, so a code may round
+        # the other way: those rows (slot b's at len[b], through its
+        # page when paged) may differ by at most one code step of their
+        # width; every other word is equal
+        lens = st["len"].long()
+        appended = torch.zeros(st["kv"][0]["k"].shape[1:3], dtype=torch.bool)
+        if paged:
+            page = st["table"][torch.arange(4), lens // 8].long()
+            appended[page, lens % 8] = True
+        else:
+            appended[torch.arange(4), lens.clamp(max=31)] = True
+        for sg, sc, (_, _, bits) in zip(st_g["kv"], st_c["kv"],
+                                        wcfg.kv_segments()):
+            for name in ("k", "v"):
+                g = sg[name].cpu()
+                vg, vc = (ref.unpack_ref(x, bits, d)
+                          for x in (g[:, appended], sc[name][:, appended]))
+                step = 2.0 ** -FLOAT_MANTISSA[bits]
+                if not (torch.equal(g[:, ~appended], sc[name][:, ~appended])
+                        and torch.allclose(vg, vc, rtol=step,
+                                           atol=2.0 ** -12)):
+                    raise AssertionError(
+                        f"per-layer widths paged={paged} AF{bits} {name}: "
+                        "a word outside the appended rows differs card vs "
+                        "CPU, or an appended row by more than a code step")
+
+    greedy = {}
+    for paged in (False, True):
+        runs = {dev: drain(SpeculativeEngine, dev, k=2, paged=paged)
+                for dev in ("cuda", "cpu")}
+        if runs["cuda"][0] != runs["cpu"][0]:
+            raise AssertionError(f"speculative paged={paged}: card and CPU "
+                                 f"tokens differ: {runs}")
+        greedy["paged" if paged else "dense"] = {
+            dev: round(r[1]["acceptance_rate"], 4) for dev, r in runs.items()}
+    log(f"speculative parity: {small.name} 2 layers f32: sampled drains "
+        f"(plain and speculative, sample_seed 7) identical twice on the card; "
+        f"per-layer KV widths {widths}, dense and paged: one decode call card "
+        f"vs CPU, max abs logit err {worst:.3g} (tol 1e-3), cache words "
+        f"equal but the rows appended at len (within a code step), each "
+        f"width's "
+        f"attention dispatched; greedy speculative "
+        f"drains (k 2) card and CPU tokens identical, acceptance "
+        f"{json.dumps(greedy)} ({time.perf_counter() - t0:.1f} s)")
 
 
 def build_summary(log_text: str, kernel: str = "") -> str:
@@ -1435,16 +1755,24 @@ def main() -> int:
 
     launches = {}                    # drain -> kernel -> launches
     prompts = shared_prefix_prompts(np, qwen)
-    launches[qwen.name], dense_outs, dense = serve(torch, qwen, prompts,
-                                                   NEW_TOKENS, MAX_SEQ)
-    launches[qwen.name + " paged"], paged_outs, paged = serve(
+    launches[qwen.name], dense_outs, dense, plain = serve(
+        torch, qwen, prompts, NEW_TOKENS, MAX_SEQ)
+    launches[qwen.name + " paged"], paged_outs, paged, _ = serve(
         torch, qwen, prompts, NEW_TOKENS, MAX_SEQ, paged=True,
         params=dense.params)
     if paged_outs != dense_outs:
         raise AssertionError(f"{qwen.name}: paged greedy tokens differ from "
                              f"the dense drain's: {paged_outs} != {dense_outs}")
     log(f"{qwen.name}: paged and dense greedy tokens identical")
-    del dense, paged               # the weights, before deepseek's
+    del paged                      # its pool, before the speculative drains
+    torch.cuda.empty_cache()
+    plain["outs"] = dense_outs
+    for spec_paged in (False, True):
+        name = f"{qwen.name} speculative" + (" paged" if spec_paged else "")
+        launches[name] = serve_speculative(torch, qwen, prompts, dense.params,
+                                           spec_paged, plain)
+        torch.cuda.empty_cache()
+    del dense                      # the weights, before deepseek's
     torch.cuda.empty_cache()
     launches[moe.name] = serve(torch, moe, random_prompts(np, moe, MOE_PROMPTS),
                                MOE_NEW_TOKENS, MOE_MAX_SEQ)[0]
@@ -1453,6 +1781,7 @@ def main() -> int:
     for cfg in (qwen, moe):
         parity(torch, np, cfg)
     paged_parity(torch, np, qwen)
+    speculative_parity(torch, np, qwen)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

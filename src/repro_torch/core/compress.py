@@ -2,10 +2,13 @@
 
 Port of the deployment half of ``repro.core.compress``: the
 ``CompressionPlan`` (per-leaf widths, versioned JSON codec),
-``uniform_plan`` (one Table 3 width for every float leaf of rank >= 2)
-and ``repack`` (re-encode a parameter tree at a plan's widths, in
-place). The kernel-granularity flow (range analysis, precision tuning,
-slice allocation) stays in the reference for now (ROADMAP A14).
+``uniform_plan`` (one Table 3 width for every float leaf of rank >= 2),
+``derive_plan`` (the speculative draft's plan, one step down the
+ladder), ``repack`` (re-encode a parameter tree at a plan's widths, in
+place) and ``repacked_copy`` (the same into fresh containers, leaving
+the source tree as it was). The kernel-granularity flow (range
+analysis, precision tuning, slice allocation) stays in the reference
+for now (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.core.formats import round_bits_to_slice
+from repro_torch.core.formats import ladder_snap, round_bits_to_slice
 from repro_torch.core.tensor_store import (is_packed, pack_tensor,
                                            repack_tensor, tree_map_with_path)
 
@@ -44,6 +47,12 @@ class CompressionPlan:
             bits, signed = self.int_bits[key]
             return round_bits_to_slice(bits), signed
         return None
+
+    def kv_layer_widths(self, n_layers: int, default: int) -> Tuple[int, ...]:
+        """Per-layer KV widths: ``kv_bits["kv/layer_i"]`` where the plan
+        names the layer, ``default`` elsewhere."""
+        return tuple(int(self.kv_bits.get(f"kv/layer_{i}", default))
+                     for i in range(n_layers))
 
     # -- JSON codec (schema v1, the reference's file format) --------------
     def to_jsonable(self) -> Dict[str, Any]:
@@ -108,6 +117,22 @@ def uniform_plan(tree: Any, bits: int, min_ndim: int = 2) -> CompressionPlan:
     return CompressionPlan(float_bits=float_bits, int_bits={})
 
 
+def derive_plan(plan: CompressionPlan, delta_bits: int = 4) -> CompressionPlan:
+    """The draft's plan: every float leaf ``delta_bits`` down the Table 3
+    ladder (the widest rung at or below, floored at AF8), every
+    ``kv_bits`` entry one rung down, integer widths carried over (they
+    are exact). Fresh dicts, never the source plan's."""
+    if delta_bits < 0:
+        raise ValueError(f"delta_bits must be >= 0, got {delta_bits}")
+    return CompressionPlan(
+        float_bits={key: ladder_snap(bits - delta_bits)
+                    for key, bits in plan.float_bits.items()},
+        int_bits=dict(plan.int_bits),
+        tune_evals=plan.tune_evals,
+        kv_bits={key: ladder_snap(bits, below=True)
+                 for key, bits in plan.kv_bits.items()})
+
+
 def repack(tree: Any, plan: CompressionPlan) -> Any:
     """Re-encode a (partially packed) tree at ``plan``'s widths, leaf by
     leaf and in place: each leaf of a dict or list is replaced as soon as
@@ -138,3 +163,11 @@ def repack(tree: Any, plan: CompressionPlan) -> Any:
         return pack_tensor(node, bits, signed=signed)
 
     return visit(tree, ())
+
+
+def repacked_copy(tree: Any, plan: CompressionPlan) -> Any:
+    """``repack`` into a fresh copy of the tree's containers: the source
+    tree keeps every leaf it had, and the two trees share only the
+    leaves the plan leaves as they are (as the reference's ``repack``,
+    which returns a new tree)."""
+    return repack(tree_map_with_path(lambda _, leaf: leaf, tree), plan)

@@ -97,13 +97,32 @@ def pack_tensor(x: torch.Tensor, bits: int, kind: Optional[str] = None,
                         logical_shape=tuple(x.shape), out_dtype=out_dtype)
 
 
+REPACK_CHUNK = 1 << 24   # codes decoded at a time by ``repack_tensor``
+
+
 def repack_tensor(pt: PackedTensor, bits: int) -> PackedTensor:
     """Re-encode at another width (decode, then encode); the same object
-    when the width is unchanged."""
+    when the width is unchanged. Rows re-encode a chunk of about
+    ``REPACK_CHUNK`` codes at a time, so the decoded f32 copy of a large
+    leaf (an 8B model's 7 GB stacked MLP weight) never exists whole."""
     if bits == pt.bits:
         return pt
-    return pack_tensor(pt.unpack(), bits, kind=pt.kind, signed=pt.signed,
-                       out_dtype=pt.out_dtype)
+    n = pt.logical_shape[-1]
+    if len(pt.logical_shape) < 2:
+        return pack_tensor(pt.unpack(), bits, kind=pt.kind, signed=pt.signed,
+                           out_dtype=pt.out_dtype)
+    rows = pt.data.reshape(-1, pt.data.shape[-1])
+    out = torch.empty((rows.shape[0], bitpack.packed_group_words(n, bits)),
+                      dtype=torch.int32, device=rows.device)
+    step = max(1, REPACK_CHUNK // n)
+    for r0 in range(0, rows.shape[0], step):
+        part = PackedTensor(rows[r0:r0 + step], pt.bits, pt.kind, pt.signed,
+                            (min(step, rows.shape[0] - r0), n), pt.out_dtype)
+        out[r0:r0 + step] = pack_tensor(part.unpack(), bits, kind=pt.kind,
+                                        signed=pt.signed).data
+    return PackedTensor(out.reshape(pt.data.shape[:-1] + (out.shape[-1],)),
+                        bits, pt.kind, pt.signed, tuple(pt.logical_shape),
+                        pt.out_dtype)
 
 
 # ---------------------------------------------------------------------------

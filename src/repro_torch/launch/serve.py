@@ -1,10 +1,12 @@
-"""Serving launcher: batched greedy decode with packed weights and KV.
+"""Serving launcher: batched decode with packed weights and KV.
 
     python -m repro_torch.launch.serve --arch qwen3_8b --pack-weights \
         [--reduced] [--requests 16] [--max-new-tokens 8] \
-        [--max-seq-len 64] [--slots 4] [--device cpu] \
+        [--max-seq-len 64] [--slots 4] [--device cpu] [--kv-bits 8] \
         [--paged] [--kv-page-size 16] [--kv-pool-pages N] \
-        [--paged-attn | --gather-attn]
+        [--paged-attn | --gather-attn] [--plan plan.json] \
+        [--speculative 4] [--draft-bits 12] [--adaptive] \
+        [--sample] [--sample-seed N]
 
 Runs on the CUDA device unless ``--device cpu`` is given (and raises
 without a card). ``--reduced`` serves the small same-family config; by
@@ -16,10 +18,21 @@ prefixes; attention reads the pool through the table, or, with
 ``--gather-attn`` (CPU only), through the gathered dense view. Weights
 are random from a fixed seed; prompts are 4 random token ids each, from
 numpy seed 0.
+
+``--speculative K`` serves through the narrow-draft stepper: a draft
+re-encoded one ladder step down (``--draft-bits`` overrides the width)
+proposes K tokens a tick and the full-width model verifies them; the
+tokens are the plain engine's, and ``--adaptive`` lets the draft
+controller retune (width, K) from live acceptance. ``--sample`` samples
+(rejection sampling under speculation) instead of taking the argmax,
+reproducibly under ``--sample-seed``. ``--plan`` packs the weights at a
+per-leaf plan file (the reference's JSON); a plan with ``kv_bits``
+entries sets per-layer KV widths. ``--kv-bits`` sets the KV width.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -53,19 +66,49 @@ def main(argv=None) -> None:
                     action="store_false",
                     help="paged only, CPU only: attend over the gathered "
                          "dense view (the parity oracle)")
+    ap.add_argument("--kv-bits", type=int, default=None,
+                    help="KV-cache width (default: the config's)")
+    ap.add_argument("--plan", default=None, metavar="PLAN_JSON",
+                    help="pack weights at this per-leaf plan; its kv_bits "
+                         "entries set per-layer KV widths")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="draft K tokens a tick through the narrow plan; "
+                         "0 = plain engine")
+    ap.add_argument("--draft-bits", type=int, default=None,
+                    help="draft weight width (default: the config's knob, "
+                         "else one Table 3 step below weight_bits)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="speculative only: retune (draft width, K) from "
+                         "live acceptance")
+    ap.add_argument("--sample", action="store_true",
+                    help="sample tokens instead of the greedy argmax")
+    ap.add_argument("--sample-seed", type=int, default=None,
+                    help="pin the sampling nonce (reproducible drains)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
-    from repro_torch.serving import ServeEngine
+    from repro_torch.core.compress import CompressionPlan
+    from repro_torch.serving import ServeEngine, SpeculativeEngine
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    eng = ServeEngine(cfg, max_seq_len=args.max_seq_len,
-                      max_slots=args.slots, pack_weights=args.pack_weights,
-                      paged=args.paged, kv_page_size=args.kv_page_size,
-                      kv_pool_pages=args.kv_pool_pages,
-                      paged_attn=args.paged_attn, device=args.device)
+    if args.kv_bits:
+        cfg = dataclasses.replace(cfg, compression=dataclasses.replace(
+            cfg.compression, kv_bits=args.kv_bits))
+    plan = CompressionPlan.load(args.plan) if args.plan else None
+    kw = dict(max_seq_len=args.max_seq_len, max_slots=args.slots,
+              pack_weights=args.pack_weights, plan=plan, paged=args.paged,
+              kv_page_size=args.kv_page_size,
+              kv_pool_pages=args.kv_pool_pages, paged_attn=args.paged_attn,
+              device=args.device, greedy=not args.sample,
+              sample_seed=args.sample_seed)
+    if args.speculative:
+        eng = SpeculativeEngine(cfg, k=args.speculative,
+                                draft_bits=args.draft_bits,
+                                adaptive=args.adaptive, **kw)
+    else:
+        eng = ServeEngine(cfg, **kw)
     rng = np.random.default_rng(0)
     rids = [eng.submit([int(t) for t in rng.integers(1, cfg.vocab_size, 4)],
                        max_new_tokens=args.max_new_tokens)
@@ -75,6 +118,9 @@ def main(argv=None) -> None:
     print(f"completed {done}/{len(rids)} requests on {eng.device}; "
           f"{stats['tokens']} tokens in {stats['ticks']} ticks; "
           f"slots={stats['slots']}; wall {stats['wall_s']:.3f} s")
+    klb = eng.cfg.compression.kv_layer_bits
+    print(f"kv widths: {list(klb) if klb else eng.cfg.compression.kv_bits}; "
+          f"{'sampled' if args.sample else 'greedy'}")
     if args.paged:
         print(f"paged: page_size={stats['kv_page_size']} "
               f"pool_pages={stats['kv_pool_pages']} "
@@ -85,6 +131,18 @@ def main(argv=None) -> None:
               f"(dense-equiv {stats['kv_pages_read_dense_equiv']}) "
               f"table_rows_uploaded={stats['table_rows_uploaded']} "
               f"table_upload_bytes={stats['table_upload_bytes']}")
+
+    if args.speculative:
+        print(f"speculative: k={stats['k']} draft_bits={stats['draft_bits']} "
+              f"draft_kv_bits={stats['draft_kv_bits']} "
+              f"acceptance={stats['acceptance_rate']:.3f} "
+              f"committed/slot-tick={stats['committed_per_slot_tick']:.2f} "
+              f"draft_weight_bytes={eng.draft_weight_read_bytes} "
+              f"target_weight_bytes={eng.weight_read_bytes}")
+        if args.adaptive:
+            print(f"adaptive: retunes={stats['retunes']} "
+                  f"post_retune_acceptance="
+                  f"{stats['post_retune_acceptance']:.3f}")
 
 
 if __name__ == "__main__":

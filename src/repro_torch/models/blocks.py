@@ -65,11 +65,11 @@ def _attn_out(p: Dict, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 
 def attention_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                     state: Dict, positions: torch.Tensor
+                     state: Dict, positions: torch.Tensor, kv_bits: int
                      ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, d); state {k, v, len}: one layer's cache, appended in
-    place at ``len``."""
-    kv_bits = cfg.compression.kv_bits
+    place at ``len`` and packed at ``kv_bits`` (the layer's own width
+    under per-layer KV widths)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     kc, vc = update_kv_cache(state["k"], state["v"], k[:, 0], v[:, 0],
                              state["len"], kv_bits)
@@ -79,13 +79,12 @@ def attention_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_decode_paged(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                            kv: Dict, table: torch.Tensor,
-                           kv_len: torch.Tensor, positions: torch.Tensor
-                           ) -> Tuple[torch.Tensor, Dict]:
+                           kv_len: torch.Tensor, positions: torch.Tensor,
+                           kv_bits: int) -> Tuple[torch.Tensor, Dict]:
     """The paged twin of ``attention_decode``: the same q/k/v program,
     the new row written straight to its physical page of ``kv`` (one
     layer's pools {k, v} of (P+1, page, Hkv, W), in place), attention
     through the page table ``table``."""
-    kv_bits = cfg.compression.kv_bits
     q, k, v = _project_qkv(p, x, cfg, positions)
     kc, vc = append_kv_pool_row(kv["k"], kv["v"], k[:, 0], v[:, 0], table,
                                 kv_len, kv_bits)

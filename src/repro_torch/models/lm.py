@@ -20,8 +20,14 @@ built once per parameter tree (``layer_params``). The KV cache is
 updated in place (the returned state shares it with the one passed in);
 ``len`` is a new tensor each step. The MoE family runs ``moe_apply`` in
 place of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
-per-layer 3-D banks. Other families come with ROADMAP A12 and per-layer
-KV widths with A11.
+per-layer 3-D banks. Other families come with ROADMAP A12.
+
+Per-layer KV widths (``compression.kv_layer_bits``) take the reference's
+width-segmented layout: ``kv`` is a tuple of ``{"k", "v"}`` buffers, one
+per contiguous run of equal-width layers (``cfg.kv_segments()``), each
+packed at its own width, dense or as pools over one page axis and one
+table. Each layer appends and attends at its own width. A uniform
+config keeps the single stacked dict.
 
 A paged state (one with a ``table``) takes the fused route by default
 (``paged_attn``): each layer appends straight to its pool and attends
@@ -100,9 +106,6 @@ class LM:
         if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP A12)")
-        if self.cfg.compression.kv_layer_bits is not None:
-            raise NotImplementedError(
-                "per-layer KV widths are not ported yet (ROADMAP A11)")
 
     # ------------------------------------------------------------------ init
     def init(self, gen: Optional[torch.Generator] = None) -> Dict:
@@ -138,21 +141,60 @@ class LM:
         return L.unembed(x, head, cfg.tie_embeddings)
 
     # --------------------------------------------------------------- decode
-    def _kv_buffers(self, rows: Tuple[int, ...]) -> Dict:
-        """Zeroed stacked K and V buffers of (L, *rows, Hkv, W): int32
-        words when the KV packs, else (..., Hkv, D) in the compute
-        dtype."""
+    def _kv_segment_layout(self) -> Optional[Tuple[Tuple[int, int, int], ...]]:
+        """``cfg.kv_segments()`` when the config carries per-layer KV
+        widths (checked as the reference checks them), else None: the
+        uniform single-buffer layout."""
         cfg = self.cfg
-        hd, bits = cfg.resolved_head_dim, cfg.compression.kv_bits
-        shape = (cfg.n_layers, *rows, cfg.n_kv_heads,
-                 bitpack.packed_group_words(hd, bits) if bits else hd)
-        dt = torch.int32 if bits else cfg.compute_dtype
-        return {name: torch.zeros(shape, dtype=dt, device=self.device)
-                for name in ("k", "v")}
+        klb = cfg.compression.kv_layer_bits
+        if klb is None:
+            return None
+        if len(klb) != cfg.n_kv_layers:
+            raise ValueError(f"kv_layer_bits has {len(klb)} entries for "
+                             f"{cfg.n_kv_layers} KV layers")
+        if not cfg.compression.kv_bits:
+            raise ValueError(
+                "kv_layer_bits requires kv_bits (set it to the max "
+                "per-layer width; None means a dense, unpacked cache)")
+        if max(klb) != cfg.compression.kv_bits:
+            raise ValueError(f"kv_bits ({cfg.compression.kv_bits}) must "
+                             f"equal max(kv_layer_bits) = {max(klb)}")
+        return cfg.kv_segments()
+
+    def _kv_buffers(self, rows: Tuple[int, ...]):
+        """Zeroed K and V buffers of (layers, *rows, Hkv, W): int32 words
+        when the KV packs, else (..., Hkv, D) in the compute dtype. One
+        stacked dict, or a tuple of them per width segment."""
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+
+        def kv(layers: int, bits: Optional[int]) -> Dict:
+            shape = (layers, *rows, cfg.n_kv_heads,
+                     bitpack.packed_group_words(hd, bits) if bits else hd)
+            dt = torch.int32 if bits else cfg.compute_dtype
+            return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                    for name in ("k", "v")}
+
+        segs = self._kv_segment_layout()
+        if segs is None:
+            return kv(cfg.n_layers, cfg.compression.kv_bits)
+        return tuple(kv(hi - lo, bits) for lo, hi, bits in segs)
+
+    def _kv_layers(self, kv) -> List[Tuple[Dict, int, Optional[int]]]:
+        """Per layer: (its segment's {k, v} buffers, its index there, its
+        KV width) for the state's ``kv`` (a stacked dict or a tuple of
+        width segments)."""
+        if isinstance(kv, tuple):
+            return [(seg, i - lo, bits) for (lo, hi, bits), seg
+                    in zip(self.cfg.kv_segments(), kv)
+                    for i in range(lo, hi)]
+        return [(kv, i, self.cfg.compression.kv_bits)
+                for i in range(self.cfg.n_layers)]
 
     def init_decode_state(self, batch_size: int, seq_len: int) -> Dict:
-        """Zeroed decode state: ``len`` (B,) int32 and the stacked cache
-        ``kv`` {k, v} of (L, B, S, Hkv, W)."""
+        """Zeroed decode state: ``len`` (B,) int32 and the cache ``kv``
+        {k, v} of (L, B, S, Hkv, W), or a tuple of such dicts per width
+        segment."""
         return {
             "len": torch.zeros((batch_size,), dtype=torch.int32,
                                device=self.device),
@@ -162,11 +204,12 @@ class LM:
     def init_paged_decode_state(self, batch_size: int, seq_len: int,
                                 page_size: int, n_pages: int) -> Dict:
         """Zeroed paged decode state: ``len`` (B,) int32, the page
-        ``table`` (B, seq_len // page_size) int32, and the stacked pools
-        ``kv`` {k, v} of (L, n_pages + 1, page_size, Hkv, W); page 0 is
-        the scrap page, the target of every unallocated table entry.
-        ``page_size`` must divide ``seq_len``, so the pages a table row
-        names span the dense cache's S rows."""
+        ``table`` (B, seq_len // page_size) int32, and the pools ``kv``
+        {k, v} of (L, n_pages + 1, page_size, Hkv, W) (a tuple of them
+        per width segment, over the same page axis); page 0 is the scrap
+        page, the target of every unallocated table entry. ``page_size``
+        must divide ``seq_len``, so the pages a table row names span the
+        dense cache's S rows."""
         if seq_len % page_size:
             raise ValueError(
                 f"kv_page_size {page_size} must divide max_seq_len "
@@ -207,19 +250,23 @@ class LM:
         x = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)
         lens = state["len"]
         positions = lens[:, None]
-        kv, table = state["kv"], state.get("table")
-        for i, lp in enumerate(self.layer_params(params)):
-            layer_kv = {"k": kv["k"][i], "v": kv["v"][i]}
+        table = state.get("table")
+        for lp, (seg, j, bits) in zip(self.layer_params(params),
+                                      self._kv_layers(state["kv"])):
+            layer_kv = {"k": seg["k"][j], "v": seg["v"][j]}
             if table is None:
                 x, _ = B.attention_decode(lp["attn"], x, cfg,
-                                          dict(layer_kv, len=lens), positions)
+                                          dict(layer_kv, len=lens), positions,
+                                          kv_bits=bits)
             elif self.paged_attn:
                 x, _ = B.attention_decode_paged(lp["attn"], x, cfg, layer_kv,
-                                                table, lens, positions)
+                                                table, lens, positions,
+                                                kv_bits=bits)
             else:
                 st = {"k": gather_kv_pages(layer_kv["k"], table),
                       "v": gather_kv_pages(layer_kv["v"], table), "len": lens}
-                x, st = B.attention_decode(lp["attn"], x, cfg, st, positions)
+                x, st = B.attention_decode(lp["attn"], x, cfg, st, positions,
+                                           kv_bits=bits)
                 for name in ("k", "v"):
                     scatter_kv_row(layer_kv[name], st[name], table, lens)
             if cfg.family == "moe":

@@ -1,8 +1,9 @@
-"""The serving snapshot key sets: a copy of the dense and paged parts of
+"""The serving snapshot key sets: a copy of the serving part of
 ``repro.obs.schema``. The port's ``ServeEngine.metrics_snapshot()``
-emits exactly ``snapshot_keys(paged)`` (a test holds it to the
-reference's sets), and ``run_until_drained`` adds ``DRAIN_EXTRA_KEYS``.
-Speculative keys come with that mode (ROADMAP A11)."""
+emits exactly ``snapshot_keys(paged)`` and ``SpeculativeEngine``'s
+``snapshot_keys(paged, speculative=True)`` (tests hold them to the
+reference's sets); ``run_until_drained`` adds ``DRAIN_EXTRA_KEYS``, and
+``DRAIN_EXTRA_KEYS_ADAPTIVE`` when the draft controller is on."""
 from __future__ import annotations
 
 SNAPSHOT_KEYS_BASE = frozenset({
@@ -32,14 +33,39 @@ SNAPSHOT_KEYS_PAGED = frozenset({
     "kv_pages_read", "kv_pages_read_dense_equiv", "kv_pages_read_bytes",
 })
 
+#: additional keys on a ``SpeculativeEngine``
+SNAPSHOT_KEYS_SPECULATIVE = frozenset({
+    "k", "initial_k", "draft_bits", "draft_kv_bits",
+    "spec_ticks", "slot_ticks", "proposed", "accepted",
+    "acceptance_rate", "acceptance_ewma", "post_retune_acceptance",
+    "committed_per_tick", "committed_per_slot_tick",
+    "retunes",
+    "draft_weight_passes",
+    "draft_weight_read_bytes_fused", "draft_weight_read_bytes_dense",
+    "draft_fused_bytes_per_pass", "draft_fused_analytic_bytes_per_pass",
+    "draft_kv_bytes_appended",
+})
+
 DRAIN_EXTRA_KEYS = frozenset({"wall_s"})
+#: further drain extras when the adaptive controller is on
+DRAIN_EXTRA_KEYS_ADAPTIVE = frozenset({"adaptive", "retune_events"})
 
 
-def snapshot_keys(paged: bool = False) -> frozenset:
+def snapshot_keys(paged: bool = False,
+                  speculative: bool = False) -> frozenset:
     """The exact ``metrics_snapshot()`` key set of an engine mode."""
-    return SNAPSHOT_KEYS_BASE | (SNAPSHOT_KEYS_PAGED if paged
-                                 else frozenset())
+    keys = SNAPSHOT_KEYS_BASE
+    if paged:
+        keys = keys | SNAPSHOT_KEYS_PAGED
+    if speculative:
+        keys = keys | SNAPSHOT_KEYS_SPECULATIVE
+    return keys
 
 
-def drain_keys(paged: bool = False) -> frozenset:
-    return snapshot_keys(paged) | DRAIN_EXTRA_KEYS
+def drain_keys(paged: bool = False, speculative: bool = False,
+               adaptive: bool = False) -> frozenset:
+    """The exact ``run_until_drained`` stats key set of an engine mode."""
+    keys = snapshot_keys(paged, speculative) | DRAIN_EXTRA_KEYS
+    if adaptive:
+        keys = keys | DRAIN_EXTRA_KEYS_ADAPTIVE
+    return keys

@@ -1,4 +1,4 @@
-"""Batched greedy decode serving with packed weights and a packed KV cache.
+"""Batched decode serving with packed weights and a packed KV cache.
 
 Port of the dense-KV and paged-KV modes of
 ``repro.serving.engine.ServeEngine``:
@@ -10,7 +10,12 @@ Port of the dense-KV and paged-KV modes of
     ``prefill_chunk`` tokens at a time (chunk widths bucketed to powers
     of two), leaving one token per request for the first decode tick;
   * one ``decode_step`` over the whole slot array per tick, then greedy
-    argmax (one device-to-host read of the tokens per tick).
+    argmax or a sampled token per slot (``greedy=False``), and one
+    device-to-host read of the tokens per tick. The tick is the
+    pluggable stepper (``_generate``): ``serving.speculative.
+    SpeculativeEngine`` replaces it with a draft/verify tick, through
+    the hooks ``_seq_headroom``, ``_prefill_call``, ``_set_slot_len``,
+    ``_copy_page`` and ``_trim_pages``.
 
 ``pack_weights=True`` (or a ``plan``) packs the weights at the planned
 width (``uniform_plan`` + ``repack``); on the card the packing itself
@@ -31,14 +36,24 @@ Decode attends through the table (``paged_attn``, the default);
 ``paged_attn=False`` takes the gather route, the parity oracle, which
 runs on the CPU only.
 
-Sampling and plans with per-layer KV widths (ROADMAP A11) raise
-``NotImplementedError``.
+Sampling draws with the Gumbel-max rule on the device, one (slots, V)
+draw a tick from a ``torch.Generator`` seeded by the reference's key
+structure: a per-engine nonce (``sample_seed`` pins it), folded with the
+tick (and a salt for the speculative draft's stream); rows of the draw
+are the slots, so slots draw independently. JAX's PRNG streams cannot
+be reproduced, so sampled tokens match the reference in distribution
+only.
+
+A plan with ``kv_bits`` rewrites the config before the model is built,
+as the reference does: uniform widths become the scalar ``kv_bits``,
+mixed widths set ``kv_layer_bits`` (the width-segmented KV layout).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import secrets
 import time
 from typing import Any, Deque, Dict, List, Optional, Sequence, Union
 
@@ -55,6 +70,41 @@ from repro_torch.models.lm import LM
 
 BOS_TOKEN = 0          # fed when a request has no prompt
 MAX_RESULTS = 65536    # finished outputs kept (FIFO)
+SAMPLE_TAG = 0x5A3B1E  # the sampling streams' base key, as the reference's
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 64-bit key from ``key`` and ``data`` (the role of
+    ``jax.random.fold_in``)."""
+    return _splitmix64(key ^ _splitmix64(data & _MASK64))
+
+
+def sample_per_slot(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """One categorical draw per row of (slots, V) logits, on their
+    device: Gumbel-max, argmax(logits - log E) with E ~ Exp(1) drawn as
+    one (slots, V) tensor from ``gen``. Each row takes its own stretch
+    of the stream, so rows with equal logits draw independently. Shared
+    by the plain engine's sampler and the speculative draft loop."""
+    e = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
+    e.exponential_(generator=gen)
+    return (logits.float() - e.log()).argmax(dim=-1)
+
+
+def _pool_copy_page(kv, src: int, dst: int) -> None:
+    """Copy one physical page across every layer of a KV pool, K and V,
+    in place: the stacked ``{"k", "v"}`` dict or the tuple of per-width
+    segments (page ids are the same in every segment)."""
+    for seg in (kv if isinstance(kv, tuple) else (kv,)):
+        for pool in seg.values():
+            pool[:, dst].copy_(pool[:, src])
 
 
 @dataclasses.dataclass
@@ -67,6 +117,9 @@ class Request:
     done: bool = False
     submitted_at: float = 0.0
     finished_at: float = 0.0
+    # speculative acceptance per request (0 / 0 on the plain engine)
+    draft_proposed: int = 0
+    draft_accepted: int = 0
     # paged-KV bookkeeping (all zero in dense mode)
     kv_len: int = 0          # host mirror of the device cache length
     n_pages: int = 0         # page-table entries currently held
@@ -95,15 +148,24 @@ class ServeEngine:
     tracer: Optional[obs.Tracer] = None
     params: Optional[Dict] = None  # serve these instead of LM.init's
     device: Optional[Union[str, torch.device]] = None
+    sample_seed: Optional[int] = None  # None: a fresh nonce per engine
 
     def __post_init__(self):
-        if not self.greedy:
-            raise NotImplementedError(
-                "sampled decoding is not ported yet (ROADMAP A11)")
         if self.plan is not None and getattr(self.plan, "kv_bits", None):
-            raise NotImplementedError(
-                "plans with per-layer KV widths are not ported yet "
-                "(ROADMAP A11)")
+            # per-layer KV widths rewrite the config before the model is
+            # built: uniform widths collapse to the scalar knob, mixed
+            # widths take the width-segmented layout
+            widths = self.plan.kv_layer_widths(
+                self.cfg.n_kv_layers, default=self.cfg.resolved_kv_bits)
+            comp = self.cfg.compression
+            if len(set(widths)) <= 1:
+                comp = dataclasses.replace(
+                    comp, kv_bits=widths[0] if widths else comp.kv_bits,
+                    kv_layer_bits=None)
+            else:
+                comp = dataclasses.replace(comp, kv_bits=max(widths),
+                                           kv_layer_bits=widths)
+            self.cfg = dataclasses.replace(self.cfg, compression=comp)
         if self.tracer is None:
             self.tracer = obs.default_tracer()
         self.lm = LM(self.cfg, device=self.device, paged_attn=self.paged_attn)
@@ -177,20 +239,37 @@ class ServeEngine:
         self._table_rows_uploaded = 0
         self._kv_pages_read = 0
         self._kv_pages_read_dense_equiv = 0
+        # sampling keys: the base folds in a per-engine nonce (without it
+        # a restarted engine replays its stream), each tick folds in the
+        # tick counter; ``sample_seed`` pins the nonce, masked to 31 bits
+        # as the reference masks it
+        self._sample_nonce = (int(self.sample_seed) & 0x7FFFFFFF
+                              if self.sample_seed is not None
+                              else secrets.randbits(31))
+        self._sample_base = fold_in(SAMPLE_TAG, self._sample_nonce)
+        self._sample_gen = torch.Generator(device=self.device)
 
     # -- client API -----------------------------------------------------------
+    @property
+    def _seq_headroom(self) -> int:
+        """Extra KV rows a tick may append past the committed length (0
+        here; k for the speculative engine)."""
+        return 0
+
     def submit(self, prompt: List[int], max_new_tokens: int = 16) -> int:
-        # prompt + all-but-the-last generated token must fit the cache;
-        # past max_seq_len the append would clamp onto the last row
-        need = max(len(prompt), 1) + max_new_tokens - 1
+        # prompt + all-but-the-last generated token (+ the speculation
+        # headroom) must fit the cache; past max_seq_len the append would
+        # clamp onto the last row
+        need = (max(len(prompt), 1) + max_new_tokens - 1
+                + self._seq_headroom)
         if need > self.max_seq_len:
             mode = ("paged KV mode: page table holds "
                     f"{self._max_pages} pages of {self.kv_page_size}"
                     if self.paged else "dense KV mode")
             raise ValueError(
                 f"request needs {need} KV rows (prompt {len(prompt)} + "
-                f"{max_new_tokens} new) but max_seq_len is "
-                f"{self.max_seq_len} [{mode}]")
+                f"{max_new_tokens} new + headroom {self._seq_headroom}) "
+                f"but max_seq_len is {self.max_seq_len} [{mode}]")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid=rid, prompt=list(prompt),
@@ -261,10 +340,10 @@ class ServeEngine:
     # -- paged-KV page management ---------------------------------------------
     def _try_reserve(self, req: Request) -> bool:
         """Admission against the pool: reserve the pages this request's
-        own worst case needs (prompt + max_new - 1 rows), less the
-        prompt-prefix pages already in the registry."""
+        own worst case needs (prompt + max_new - 1 + speculation headroom
+        rows), less the prompt-prefix pages already in the registry."""
         pending = list(req.prompt) or [BOS_TOKEN]
-        need = len(pending) + req.max_new_tokens - 1
+        need = len(pending) + req.max_new_tokens - 1 + self._seq_headroom
         pages_needed = -(-need // self.kv_page_size)
         # full pages strictly below the held-back last prompt token are
         # shareable; probe the chain left to right (a miss ends it)
@@ -370,8 +449,24 @@ class ServeEngine:
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one physical page across every layer, K and V, on the
         device."""
-        for pool in self.state["kv"].values():
-            pool[:, dst].copy_(pool[:, src])
+        _pool_copy_page(self.state["kv"], src, dst)
+
+    def _trim_pages(self, req: Request) -> None:
+        """Free the pages past the committed length (speculation rolled
+        the cache back). A page this request held alone goes back into
+        its reservation, so pool use tracks committed rows and the
+        admission guarantee holds."""
+        keep = max(-(-req.kv_len // self.kv_page_size), 1)
+        while req.n_pages > keep:
+            req.n_pages -= 1
+            page = int(self._table[req.slot, req.n_pages])
+            self._table[req.slot, req.n_pages] = 0
+            self._dirty_rows.add(req.slot)
+            sole = self.pool.refcount(page) == 1
+            self.pool.free(page)
+            if sole:
+                self.pool.reserve(1)
+                req.reserved_pages += 1
 
     def _flush_registrations(self, req: Request) -> None:
         """Publish shareable pages whose rows prefill has now written
@@ -520,12 +615,32 @@ class ServeEngine:
             with self.tracer.span("serve.prefill", chunk=chunk, rows=rows,
                                   requests=len(pending)), \
                     self._paged_attn_span(pages, chunk):
-                self._prefill_calls += 1
-                self._weight_passes += 1
-                self.state = self.lm.prefill_step(
-                    self.params, self.state,
-                    torch.from_numpy(tokens).to(self.device),
-                    torch.from_numpy(n_valid).to(self.device))
+                self._prefill_call(torch.from_numpy(tokens).to(self.device),
+                                   torch.from_numpy(n_valid).to(self.device))
+
+    def _prefill_call(self, tokens: torch.Tensor,
+                      n_valid: torch.Tensor) -> None:
+        """One chunked KV append over the slot array (the speculative
+        engine mirrors it into its draft cache)."""
+        self._prefill_calls += 1
+        self._weight_passes += 1
+        self.state = self.lm.prefill_step(self.params, self.state, tokens,
+                                          n_valid)
+
+    def _tick_key(self, salt: int = 0) -> int:
+        """The tick's sampling key: the engine's base folded with the
+        tick counter, and with ``salt`` for another stream (the
+        speculative draft's)."""
+        key = fold_in(self._sample_base, self.ticks)
+        return fold_in(key, salt) if salt else key
+
+    def _generator(self, key: int) -> torch.Generator:
+        """The engine's generator on its device, seeded with ``key``."""
+        return self._sample_gen.manual_seed(key)
+
+    def _sample_tokens(self, logits: torch.Tensor) -> torch.Tensor:
+        """One token per slot of (slots, V) logits, from the tick's key."""
+        return sample_per_slot(self._generator(self._tick_key()), logits)
 
     def _generate(self) -> Dict[int, List[int]]:
         """One decode tick: the token committed per request id."""
@@ -551,7 +666,8 @@ class ServeEngine:
             logits, self.state = self.lm.decode_step(
                 self.params, self.state,
                 torch.from_numpy(tokens).to(self.device))
-            nxt = logits[:, 0, :].argmax(dim=-1).cpu().numpy()
+            nxt = (logits[:, 0, :].argmax(dim=-1) if self.greedy
+                   else self._sample_tokens(logits[:, 0, :])).cpu().numpy()
         if self.paged:
             for req in self._active.values():
                 req.kv_len = min(req.kv_len + 1, self.max_seq_len)

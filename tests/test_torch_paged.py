@@ -41,7 +41,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import append_kv_pool_row
 from repro_torch.models.lm import LM
 from repro_torch.serving import ServeEngine
-from test_torch_serve import _jitted_repack, _numpy_tree
+from test_torch_serve import (_jitted_repack, _numpy_tree,  # noqa: F401
+                              one_torch_thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 # the reference's paged serving bench: its widths and its two traffics

@@ -42,6 +42,19 @@ NEW = 4
 PROMPT_LENS = (5, 0, 9, 1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while a module runs: its shapes are tiny, and
+    test workers in parallel, each at a thread a core, oversubscribe the
+    cores (on an 8-core CPU, six such workers drained a reduced
+    speculative engine in ~175 s each, against ~2.5 s at one thread).
+    Modules that import it take it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _numpy_tree(tree):
     """The reference's parameter tree in interop's numpy form."""
     if isinstance(tree, RefPacked):
@@ -159,8 +172,13 @@ def test_configs_match_reference(arch):
 
 def test_unported_modes_raise():
     cfg = get_config("qwen3_8b").reduced()
-    with pytest.raises(NotImplementedError, match="A11"):
-        ServeEngine(cfg, max_slots=1, device="cpu", greedy=False)
+    # sampled decoding is ported (tests/test_torch_speculative.py): a
+    # sampled engine is built and drains
+    eng = ServeEngine(cfg, max_slots=1, device="cpu", greedy=False,
+                      sample_seed=0)
+    rid = eng.submit([1, 2, 3], max_new_tokens=2)
+    eng.run_until_drained()
+    assert len(eng.result(rid)) == 2
     # paged KV mode is ported (tests/test_torch_paged.py): a page pool
     # and a page table on the device
     eng = ServeEngine(cfg, max_slots=1, device="cpu", paged=True)
