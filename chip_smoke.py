@@ -51,6 +51,18 @@ Phases; any failure raises and the script exits non-zero:
    AF8-AF16 and every 4099th f32 bit pattern; each timed at AF16 on
    the w_up shape beside its bound, plain and library times; unpack
    also at AF8 and AF12 and to bf16 at AF16.
+2c. the four other families at their full-width decode tick
+   (paligemma-3b, whisper-small, falcon-mamba-7b, recurrentgemma-9b;
+   bf16 activations, AF16 weights and KV, caches of 64 rows): every
+   packed product of the body (``tick_products``; the tied heads of
+   paligemma and recurrentgemma in the transposed orientation, whisper's
+   untied head, mamba's four projections), the KV append and kv_decode
+   of each self-attention layer (recurrentgemma over its ring), whisper's
+   cross attention over its 1,500 rows, the embedding gather, and
+   paligemma's paged_attention (head_dim 256, 8 query heads a KV head)
+   on the check case and its paged drain's tick, also held bit for bit
+   to kv_decode over the same rows: each held to its plain version and
+   timed beside its bound and library call.
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
    card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
@@ -60,7 +72,11 @@ Phases; any failure raises and the script exits non-zero:
    tokens must agree and the pool must drain back to empty. Then serve
    full-width deepseek-moe-16b (28 layers, 64 routed experts top-6 and 2
    shared, the same widths): 8 requests with prompts of 8-32 tokens, 8
-   new tokens each, 8 slots, max_seq_len 64. Before deepseek, on the
+   new tokens each, 8 slots, max_seq_len 64; then the four other
+   families the same way (random weights packed on the card; the
+   recurrent families feed their prompts a token a tick), paligemma also
+   paged on the dense drain's weights with the same tokens. Before
+   deepseek, on the
    qwen3 dense drain's weights, two speculative drains of the same
    requests (AF16 target, AF12 draft weights and AF12 draft KV, k = 4,
    greedy), dense then paged: the tokens must be the plain dense
@@ -72,14 +88,17 @@ Phases; any failure raises and the script exits non-zero:
    plain drain's and peak memory. For each drain the launch
    counters are zeroed just before it and read just after; every kernel
    of its path must have launched, exactly as often as the path's shape
-   says (one pack launch, the KV append, per layer and decode call),
+   says (one pack launch, the KV append, per layer and decode call;
+   of the packed_matmul launches, one transposed a decode call where
+   the head is tied, by the wrapper's own count of that orientation),
    and unpack, convert and truncate not at all; the drain's last
    decode call is replayed under torch.profiler, as it runs and with
    the append as the eager composition, to count its device launches.
-4. cross-device parity, for each model at 2 layers in f32: one
-   decode_step (PARITY_STEPS; the CPU's plain versions take ~90 s a
-   full-width step) on the card (kernels) against the CPU (plain
-   versions) with the same packed weights; for deepseek also the number of routing choices
+4. cross-device parity, for each of the six models at 2 layers (the
+   hybrid at 4: a group and a tail layer) in f32: PARITY_STEPS
+   decode_steps at full width on the card (kernels) against the CPU
+   (plain versions) with the same packed weights, whisper over a cross
+   cache of random values; for deepseek also the number of routing choices
    (token, k) that differ between the two; for qwen3's reduced config
    (2 layers, f32) also the paged engine, card against CPU: the same
    tokens and pool counters, and every decode call of the card's drain
@@ -89,7 +108,9 @@ Phases; any failure raises and the script exits non-zero:
    one decode call with per-layer KV widths (16, 12), dense and paged,
    card against CPU (logits, cache words, each width's attention
    dispatched); greedy speculative drains, card tokens against the
-   CPU's.
+   CPU's; and recurrentgemma's reduced config with a window of 8 and 4
+   layers, drained on the card and on the CPU past its window (its
+   attention ring wraps): the same tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds every kernel's numbers. Without a card, or without the rest of the
@@ -122,6 +143,10 @@ PARITY_STEPS = 2                 # full-width decode steps held to the CPU
 SYSTEM_PROMPT, SUFFIXES, PAGE = 64, (8, 32), 16
 # the deepseek-moe-16b drain: (prompt lengths from, to), new tokens, max_seq_len
 MOE_PROMPTS, MOE_NEW_TOKENS, MOE_MAX_SEQ = (8, 32), 8, 64
+# the four other families, drained as deepseek-moe-16b is (its prompt
+# lengths, new tokens and max_seq_len); paligemma also paged
+FAMILY_ARCHS = ("paligemma_3b", "whisper_small", "falcon_mamba_7b",
+                "recurrentgemma_9b")
 BF16_TOL = 2.0 ** -8             # one bf16 rounding of the f32 result
 FLOAT_MANTISSA = {16: 10, 12: 7}  # AF16 e5m10, AF12 e4m7
 
@@ -239,6 +264,58 @@ def width_summary(recs, calls_key):
     }
 
 
+def matmul_case(torch, ops, ref, gen, model, k, n, calls, transpose, xdt,
+                bits, draft_calls=0):
+    """One product x (slots, K) @ W at ``bits``, W (K, N), or (N, K)
+    packed along K when ``transpose``: held to the plain version, timed
+    with W rotated past the L2, beside the plain version, cuBLAS on the
+    decoded bf16 W and the bound."""
+    wshape = (n, k) if transpose else (k, n)
+    w = torch.randn(wshape, generator=gen, device="cuda") / math.sqrt(k)
+    wp = ops.pack(w, bits)
+    w_lib = (ref.unpack_ref(wp, bits, k if transpose else n)
+             .to(torch.bfloat16))
+    del w
+    x = torch.randn((SLOTS, k), generator=gen, device="cuda").to(xdt)
+    got = ops.packed_matmul(x, wp, bits, n, transpose)
+    want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = (BF16_TOL if xdt == torch.bfloat16 else 1e-5) * scale + 1e-4
+    assert got.dtype == xdt and got.shape == (SLOTS, n)
+    assert torch.isfinite(got).all().item()
+    if err > tol:
+        raise AssertionError(f"packed_matmul K={k} N={n} T={transpose} "
+                             f"{xdt} AF{bits}: max err {err} > tol {tol}")
+    wbytes = wp.numel() * 4
+    reps = [wp] + [wp.clone() for _ in range(copies_for(wbytes) - 1)]
+    libs = [w_lib] + [w_lib.clone() for _ in range(
+        copies_for(w_lib.numel() * 2) - 1)]
+    calls_k = [lambda r=r: ops.packed_matmul(x, r, bits, n, transpose)
+               for r in reps]
+    ms, issue = time_ms(torch, calls_k, 50)
+    plain = time_ms(torch, [lambda: ref.packed_matmul_ref(
+        x, wp, bits, n, transpose)], 3)[0]
+    lib = time_ms(torch, [lambda r=r: torch.matmul(
+        x.to(torch.bfloat16), r.t() if transpose else r) for r in libs],
+        50)[0]
+    b_ms, b_by = bound(wbytes + x.numel() * x.element_size()
+                       + got.numel() * got.element_size(),
+                       2.0 * SLOTS * n * k)
+    rec = {"kernel": "packed_matmul", "model": model, "K": k, "N": n,
+           "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
+           "bits": bits, "calls_per_tick": calls,
+           "draft_calls_per_pass": draft_calls, "max_err": err,
+           "tol": tol, "kernel_ms": ms, "host_issue_ms": issue,
+           "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib}
+    log(json.dumps(rec))
+    del reps, libs, wp, w_lib, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_packed_matmul(torch, ops, ref, gen, cfg):
     """Every 2-D product of a decode tick, M = slots, bf16 x (f32 for the
     MoE router), AF16 W; for qwen3-8b also f32 x, the tied-head
@@ -274,53 +351,10 @@ def check_packed_matmul(torch, ops, ref, gen, cfg):
         draft_calls = {(d, hq): 2 * L, (d, hkv): 2 * L, (d, f): 2 * L,
                        (f, d): L, (d, v): 1}
         cases += [(k, n, 0, False, bf, 12) for k, n in draft_calls]
-    per_call = []
-    for k, n, calls, transpose, xdt, bits in cases:
-        wshape = (n, k) if transpose else (k, n)
-        w = torch.randn(wshape, generator=gen, device="cuda") / math.sqrt(k)
-        wp = ops.pack(w, bits)
-        w_lib = (ref.unpack_ref(wp, bits, k if transpose else n)
-                 .to(torch.bfloat16))
-        del w
-        x = torch.randn((SLOTS, k), generator=gen, device="cuda").to(xdt)
-        got = ops.packed_matmul(x, wp, bits, n, transpose)
-        want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
-        torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        scale = want.abs().max().item()
-        tol = (BF16_TOL if xdt == torch.bfloat16 else 1e-5) * scale + 1e-4
-        assert got.dtype == xdt and got.shape == (SLOTS, n)
-        assert torch.isfinite(got).all().item()
-        if err > tol:
-            raise AssertionError(f"packed_matmul K={k} N={n} T={transpose} "
-                                 f"{xdt} AF{bits}: max err {err} > tol {tol}")
-        wbytes = wp.numel() * 4
-        reps = [wp] + [wp.clone() for _ in range(copies_for(wbytes) - 1)]
-        libs = [w_lib] + [w_lib.clone() for _ in range(
-            copies_for(w_lib.numel() * 2) - 1)]
-        calls_k = [lambda r=r: ops.packed_matmul(x, r, bits, n, transpose)
-                   for r in reps]
-        ms, issue = time_ms(torch, calls_k, 50)
-        plain = time_ms(torch, [lambda: ref.packed_matmul_ref(
-            x, wp, bits, n, transpose)], 3)[0]
-        lib = time_ms(torch, [lambda r=r: torch.matmul(
-            x.to(torch.bfloat16), r.t() if transpose else r) for r in libs],
-            50)[0]
-        b_ms, b_by = bound(wbytes + x.numel() * x.element_size()
-                           + got.numel() * got.element_size(),
-                           2.0 * SLOTS * n * k)
-        rec = {"kernel": "packed_matmul", "model": cfg.name, "K": k, "N": n,
-               "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
-               "bits": bits, "calls_per_tick": calls,
-               "draft_calls_per_pass": draft_calls.get((k, n), 0)
-               if bits == 12 else 0, "max_err": err,
-               "tol": tol, "kernel_ms": ms, "host_issue_ms": issue,
-               "plain_ms": plain, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib}
-        log(json.dumps(rec))
-        per_call.append(rec)
-        del reps, libs, wp, w_lib, got, want
-        torch.cuda.empty_cache()
+    per_call = [matmul_case(torch, ops, ref, gen, cfg.name, k, n, calls,
+                            transpose, xdt, bits,
+                            draft_calls.get((k, n), 0) if bits == 12 else 0)
+                for k, n, calls, transpose, xdt, bits in cases]
     w_up = {r["bits"]: r["kernel_ms"] for r in per_call
             if (r["K"], r["N"], r["transpose"]) == (d, f, False)
             and r["x_dtype"] == "bfloat16"}
@@ -529,6 +563,65 @@ def check_pack(torch, ops, ref, gen, cfg):
     return summary
 
 
+def kv_case(torch, F, ops, ref, gen, model, h, hkv, d, seq, lens, bits,
+            calls, timed=True, case="self"):
+    """q (slots, h, d) bf16 against a random cache (slots, seq, hkv, d)
+    packed at ``bits``, masked at ``lens``: held to the plain version
+    (a slot of length 0 gives zeros); when ``timed``, timed with the
+    cache rotated past the L2 beside the plain version, SDPA on the
+    decoded bf16 cache and the bound."""
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((SLOTS, h, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kv_shape = (SLOTS, seq, hkv, d)
+    kp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"), bits)
+    vp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"), bits)
+    got = ops.kv_decode(q, kp, vp, kv_len, bits, d)
+    want = ref.kv_decode_ref(q, kp, vp, bits, d, kv_len)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL * want.float().abs().max().item() + 1e-3
+    empty = [b for b, n in enumerate(lens) if n == 0]
+    if err > tol or (empty and got[empty].any().item()):
+        raise AssertionError(f"kv_decode {model} {case} AF{bits}: max err "
+                             f"{err} > tol {tol}, or kv_len == 0 not zero")
+    if not timed:
+        log(json.dumps({"kernel": "kv_decode", "model": model, "case": case,
+                        "bits": bits, "q": list(q.shape), "S": seq,
+                        "max_err": err, "tol": tol, "checked_only": True}))
+        return {"max_err": err, "calls_per_tick": 0}
+    cache_bytes = kp.numel() * 4 * 2
+    reps = [(kp, vp)] + [(kp.clone(), vp.clone())
+                         for _ in range(copies_for(cache_bytes) - 1)]
+    calls_k = [lambda r=r: ops.kv_decode(q, r[0], r[1], kv_len, bits, d)
+               for r in reps]
+    ms, issue = time_ms(torch, calls_k, 100)
+    plain = time_ms(torch, [lambda: ref.kv_decode_ref(
+        q, kp, vp, bits, d, kv_len)], 10)[0]
+    group = h // hkv
+    kd, vd = (ref.unpack_ref(x, bits, d, torch.bfloat16).transpose(1, 2)
+              .repeat_interleave(group, dim=1).contiguous()
+              for x in (kp, vp))
+    mask = (torch.arange(seq, device="cuda")[None, None, None, :]
+            < kv_len[:, None, None, None])
+    q4 = q[:, :, None, :]
+    lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask)], 100)[0]
+    live = kv_len.clamp(max=seq).sum().item()
+    row_bytes = hkv * kp.shape[-1] * 4
+    b_ms, b_by = bound(2 * live * row_bytes + 2 * q.numel() * 2
+                       + 4 * SLOTS, 4.0 * h * d * live)
+    rec = {"kernel": "kv_decode", "model": model, "case": case, "bits": bits,
+           "q": list(q.shape), "S": seq, "Hkv": hkv, "kv_len": lens,
+           "calls_per_tick": calls, "max_err": err, "tol": tol,
+           "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    log(json.dumps(rec))
+    del reps, kd, vd, kp, vp
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
     """q (slots, heads, head_dim) bf16 against an AF16 cache of ``seq``
     rows (the drain's max_seq_len), mixed lengths including 0 and one
@@ -536,63 +629,15 @@ def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
     shape (the speculative draft's), timed, and AF8 and AF32 caches,
     checked only (no tick runs them)."""
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    kv_len = torch.tensor([0, 1, 7, seq // 4, seq * 25 // 64, seq * 25 // 32,
-                           seq, seq + 3], dtype=torch.int32, device="cuda")
-    q = torch.randn((SLOTS, h, d), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    kv_shape = (SLOTS, seq, hkv, d)
+    lens = [0, 1, 7, seq // 4, seq * 25 // 64, seq * 25 // 32, seq, seq + 3]
     per_call, per_width = [], {}
     for bits in ((8, 32, 12, 16) if cfg.family != "moe" else (16,)):
-        kp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"),
-                      bits)
-        vp = ops.pack(torch.randn(kv_shape, generator=gen, device="cuda"),
-                      bits)
-        got = ops.kv_decode(q, kp, vp, kv_len, bits, d)
-        want = ref.kv_decode_ref(q, kp, vp, bits, d, kv_len)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = BF16_TOL * want.float().abs().max().item() + 1e-3
-        if err > tol or got[0].any().item():
-            raise AssertionError(f"kv_decode AF{bits}: max err {err} > tol "
-                                 f"{tol}, or kv_len == 0 not zero")
-        if bits not in (12, 16):
-            log(json.dumps({"kernel": "kv_decode", "model": cfg.name,
-                            "bits": bits, "q": list(q.shape), "S": seq,
-                            "max_err": err, "tol": tol, "checked_only": True}))
-            per_call.append({"max_err": err, "calls_per_tick": 0})
-            continue
-        cache_bytes = kp.numel() * 4 * 2
-        reps = [(kp, vp)] + [(kp.clone(), vp.clone())
-                             for _ in range(copies_for(cache_bytes) - 1)]
-        calls_k = [lambda r=r: ops.kv_decode(q, r[0], r[1], kv_len, bits, d)
-                   for r in reps]
-        ms, issue = time_ms(torch, calls_k, 100)
-        plain = time_ms(torch, [lambda: ref.kv_decode_ref(
-            q, kp, vp, bits, d, kv_len)], 10)[0]
-        group = h // hkv
-        kd, vd = (ref.unpack_ref(x, bits, d, torch.bfloat16).transpose(1, 2)
-                  .repeat_interleave(group, dim=1).contiguous()
-                  for x in (kp, vp))
-        mask = (torch.arange(seq, device="cuda")[None, None, None, :]
-                < kv_len[:, None, None, None])
-        q4 = q[:, :, None, :]
-        lib = time_ms(torch, [lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask)], 100)[0]
-        live = kv_len.clamp(max=seq).sum().item()
-        row_bytes = hkv * kp.shape[-1] * 4
-        b_ms, b_by = bound(2 * live * row_bytes + 2 * q.numel() * 2
-                           + 4 * SLOTS, 4.0 * h * d * live)
-        rec = {"kernel": "kv_decode", "model": cfg.name, "bits": bits,
-               "q": list(q.shape), "S": seq, "kv_len": kv_len.tolist(),
-               "calls_per_tick": cfg.n_layers if bits == 16 else 0,
-               "max_err": err, "tol": tol, "kernel_ms": ms,
-               "host_issue_ms": issue, "plain_ms": plain,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-        log(json.dumps(rec))
+        rec = kv_case(torch, F, ops, ref, gen, cfg.name, h, hkv, d, seq,
+                      lens, bits, cfg.n_layers if bits == 16 else 0,
+                      timed=bits in (12, 16))
         per_call.append(rec)
         if bits == 12:
             per_width["AF12"] = width_summary([dict(rec, calls=1)], "calls")
-        del reps, kd, vd
     summary = tick_summary(per_call)
     if per_width:
         summary["per_width"] = per_width
@@ -634,27 +679,40 @@ def _rows_read(table, lens, page):
     return sum(rows.values()), entries
 
 
+def paged_cases(cfg):
+    """``check_paged_attention``'s cases: (name, lengths, table width,
+    shared pages (b1, b2, n), calls per decode tick, widths). The check
+    case: lengths 0, 1, 15, 16, 17, 255, 200 (sharing 12 pages with the
+    255) and 4096. qwen3-8b's tick: every slot sharing the 64-token
+    system prompt's pages, lengths near its drain's; checked at AF16,
+    AF8 and on bf16 rows, its tick at AF16 and AF12 (the speculative
+    draft's cache). paligemma-3b (head_dim 256, 8 query heads a KV
+    head): the check case and its paged drain's tick (prompts of 8-32
+    tokens and 8 new, no shared prefix, MOE_MAX_SEQ rows), at AF16."""
+    check = ("check", [0, 1, 15, 16, 17, 255, 200, 4096], 4096 // PAGE,
+             [(5, 6, 12)], 0)
+    if cfg.family == "vlm":
+        return [check + ((16,),),
+                ("tick", [9, 14, 20, 25, 31, 33, 38, 40],
+                 MOE_MAX_SEQ // PAGE, [], cfg.n_layers, (16,))]
+    return [check + ((16, 8, 0),),
+            ("tick", [72, 80, 88, 96, 104, 112, 76, 92], MAX_SEQ // PAGE,
+             [(0, b, SYSTEM_PROMPT // PAGE) for b in range(1, SLOTS)],
+             cfg.n_layers, (16, 12))]
+
+
 def check_paged_attention(torch, F, ops, ref, gen, cfg):
     """q (slots, heads, head_dim) bf16 through a page table of shuffled
-    ids over AF16, AF8 and bf16-row pools (page 16): lengths 0, 1, 15,
-    16, 17, 255, 200 (sharing 12 pages with the 255) and 4096; the
-    scrap page holds large finite poison. Held to the plain version
+    ids over AF16, AF8 and bf16-row pools (page 16) in ``paged_cases``;
+    the scrap page holds large finite poison. Held to the plain version
     within tolerance, bit for bit to kv_decode over the same rows laid
-    out dense, and to itself with a clean scrap page. Timed at AF16 on
-    that case and on a decode tick's shape (every slot sharing the
-    64-token system prompt's pages, lengths near the drain's), there
-    also at AF12 (the speculative draft's cache)."""
+    out dense, and to itself with a clean scrap page. Timed at AF16 and
+    AF12 beside the plain version, SDPA and the bound."""
     import numpy as np
 
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    # (name, lengths, table width, shared pages, calls per decode tick)
-    cases = [("check", [0, 1, 15, 16, 17, 255, 200, 4096], 4096 // PAGE,
-              [(5, 6, 12)], 0),
-             ("tick", [72, 80, 88, 96, 104, 112, 76, 92], MAX_SEQ // PAGE,
-              [(0, b, SYSTEM_PROMPT // PAGE) for b in range(1, SLOTS)],
-              cfg.n_layers)]
     per_call, per_width = [], {}
-    for name, lens, max_pages, shared, calls in cases:
+    for name, lens, max_pages, shared, calls, widths in paged_cases(cfg):
         table_np, pool_pages, n_live = _paged_layout(np, lens, PAGE,
                                                      max_pages, shared)
         table = torch.from_numpy(table_np).cuda()
@@ -663,7 +721,7 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
                         device="cuda").to(torch.bfloat16)
         rows = torch.randn((2, pool_pages, PAGE, hkv * d), generator=gen,
                            device="cuda")
-        for bits in ((16, 8, 0) if name == "check" else (16, 12)):
+        for bits in widths:
             poison, clean = rows.clone(), rows.clone()
             poison[:, 0] = 10.0 if bits else 1e4
             clean[:, 0] = 0.0
@@ -696,8 +754,9 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
                     raise AssertionError(
                         f"paged_attention {name} AF{bits}: not bit-identical "
                         "to kv_decode on the same rows laid out dense")
-            log(json.dumps({"kernel": "paged_attention", "case": name,
-                            "bits": bits, "max_err": err, "tol": tol,
+            log(json.dumps({"kernel": "paged_attention", "model": cfg.name,
+                            "case": name, "bits": bits, "q": list(q.shape),
+                            "max_err": err, "tol": tol,
                             "bit_identical_to_kv_decode": bool(bits)}))
             if bits not in (12, 16):
                 per_call.append({"max_err": err, "calls_per_tick": 0})
@@ -1108,36 +1167,210 @@ def check_unpack_convert(torch, ops, ref, gen, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serve full-width qwen3-8b and deepseek-moe-16b
+# phase 2c: the vlm, encdec, ssm and hybrid families at their decode tick
+# ---------------------------------------------------------------------------
+
+def cross_layers(cfg):
+    """Cross-attention layers of one decode body (encdec's decoder); the
+    self-attention layers are ``cfg.n_kv_layers``."""
+    return cfg.n_layers if cfg.family == "encdec" else 0
+
+
+def tick_products(cfg):
+    """(K, N, calls per decode body, transpose) of every packed 2-D
+    product a decode body runs, by the code of the family's blocks, and
+    the head last (one call per body that makes logits; a tied table
+    (V, d) takes the transposed orientation)."""
+    import collections
+
+    d, L = cfg.d_model, cfg.n_layers
+    hq = cfg.n_heads * cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    calls = collections.Counter()
+
+    def attention(n, cross=False):             # wq, wo (+ wk, wv)
+        calls[(d, hq)] += n
+        calls[(hq, d)] += n
+        if not cross:
+            calls[(d, hkv)] += 2 * n
+
+    def mlp(n, f=cfg.d_ff, gated=cfg.gated_mlp):
+        calls[(d, f)] += n * (2 if gated else 1)
+        calls[(f, d)] += n
+
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        attention(L)
+        mlp(L)
+    elif fam == "moe":
+        attention(L)
+        calls[(d, cfg.n_experts)] += L          # the router
+        if cfg.n_shared_experts:
+            mlp(L, cfg.moe_d_ff * cfg.n_shared_experts, True)
+        if cfg.dense_residual:
+            mlp(L, cfg.d_ff, True)
+    elif fam == "encdec":
+        attention(L)
+        attention(L, cross=True)
+        mlp(L)
+    elif fam == "ssm":
+        di, dtr, n = cfg.d_inner, cfg.resolved_dt_rank, cfg.ssm_state
+        for shape in ((d, 2 * di), (di, dtr + 2 * n), (dtr, di), (di, d)):
+            calls[shape] += L                   # in, x, dt, out projections
+    else:                                       # hybrid
+        n_attn = cfg.n_kv_layers
+        lw = cfg.lru_width or d
+        calls[(d, lw)] += 2 * (L - n_attn)      # rg_in_w, rg_gate_w
+        calls[(lw, d)] += L - n_attn            # rg_out
+        attention(n_attn)
+        mlp(L)
+    return ([(k, n, c, False) for (k, n), c in calls.items()]
+            + [(d, cfg.vocab_size, 1, cfg.tie_embeddings)])
+
+
+def append_case(torch, ops, ref, gen, cfg, seq, lens, calls):
+    """The decode tick's KV append (``ops.append_kv_rows``) of bf16 K, V
+    rows (slots, Hkv, head_dim) into AF16 dense caches of ``seq`` rows:
+    bit-exact against the plain version, timed per layer."""
+    hkv, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    w = -(-d // 32) * 16
+    (kc, vc), kv_len, _ = _append_case(torch, gen, "dense", hkv, w, seq,
+                                       lens)
+    k, v = (torch.randn((SLOTS, hkv, d), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    got, want = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+    ops.append_kv_rows(*got, k, v, kv_len, 16)
+    ref.append_kv_rows_ref(*want, k, v, kv_len, 16)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, x) for g, x in zip(got, want)):
+        raise AssertionError(f"append {cfg.name}: words differ")
+    args = (kc, vc, k, v, kv_len, 16)
+    ms, issue = time_ms(torch, [lambda: ops.append_kv_rows(*args)], 200)
+    plain = time_ms(torch, [lambda: ref.append_kv_rows_ref(*args)], 20)[0]
+    b_ms, b_by = bound(2 * SLOTS * hkv * d * 2 + 2 * SLOTS * hkv * w * 4
+                       + SLOTS * 4, 0.0)
+    rec = {"kernel": "pack", "case": "append dense", "model": cfg.name,
+           "rows": [SLOTS, hkv, d], "S": seq, "bits": 16,
+           "calls_per_tick": calls, "max_err": 0.0, "tol": 0.0,
+           "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    log(json.dumps(rec))
+    return rec
+
+
+def take_case(torch, F, ops, ref, gen, cfg):
+    """The tick's embedding gather: slots rows of the AF16 table (V, d)
+    to bf16, bit for bit, timed beside ``F.embedding`` on the decoded
+    table."""
+    v, d = cfg.vocab_size, cfg.d_model
+    bf = torch.bfloat16
+    table = ops.pack(torch.randn((v, d), generator=gen, device="cuda")
+                     * 0.02, 16)
+    idx = torch.tensor([5, v - 1, 0, v // 3, 5, 123, v // 7, 5],
+                       dtype=torch.int32, device="cuda")
+    got = ops.take_rows(table, idx, 16, d, out_dtype=bf)
+    _expect_same_bits(torch, got, ref.take_rows_ref(table, idx, 16, d,
+                                                    out_dtype=bf),
+                      f"take_rows {cfg.name}")
+    ms, issue = time_ms(torch, [lambda: ops.take_rows(
+        table, idx, 16, d, out_dtype=bf)], 200)
+    plain = time_ms(torch, [lambda: ref.take_rows_ref(
+        table, idx, 16, d, out_dtype=bf)], 20)[0]
+    dec = ref.unpack_ref(table, 16, d, bf)
+    lib = time_ms(torch, [lambda: F.embedding(idx, dec)], 200)[0]
+    b_ms, b_by = bound(idx.unique().numel() * table.shape[1] * 4
+                       + idx.numel() * 4 + got.numel() * 2, 0.0)
+    rec = {"kernel": "take_rows", "model": cfg.name, "table": [v, d],
+           "rows": SLOTS, "calls_per_tick": 1, "max_err": 0.0, "tol": 0.0,
+           "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    log(json.dumps(rec))
+    del table, dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_family(torch, F, ops, ref, gen, cfg, seq):
+    """Every kernel of ``cfg``'s decode tick at its full-width shapes, bf16
+    activations, AF16 weights and KV, a cache of ``seq`` rows (the
+    drain's max_seq_len; the hybrid's ring is min(attn_window, seq)
+    rows): every packed product (``tick_products``; the tied heads
+    transposed), the KV append and the self-attention of the layers that
+    have them, encdec's cross-attention over ``encoder_seq`` rows, the
+    embedding gather. Each is held to its plain version and timed beside
+    its bound and library call; returns per kernel its numbers per
+    tick."""
+    per = {"packed_matmul": [
+        matmul_case(torch, ops, ref, gen, cfg.name, k, n, calls, transpose,
+                    torch.bfloat16, 16)
+        for k, n, calls, transpose in tick_products(cfg)]}
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    self_layers, cross = cfg.n_kv_layers, cross_layers(cfg)
+    if self_layers:
+        if cfg.family == "hybrid":
+            seq = min(cfg.attn_window or seq, seq)
+        lens = [0, 1, 7, seq // 4, seq * 25 // 64, seq * 25 // 32, seq,
+                seq + 3]
+        per["pack"] = [append_case(torch, ops, ref, gen, cfg, seq, lens,
+                                   self_layers)]
+        per["kv_decode"] = [kv_case(torch, F, ops, ref, gen, cfg.name, h,
+                                    hkv, d, seq, lens, 16, self_layers)]
+    if cross:
+        es = cfg.encoder_seq
+        per["kv_decode"].append(kv_case(
+            torch, F, ops, ref, gen, cfg.name, h, hkv, d, es, [es] * SLOTS,
+            16, cross, case="cross"))
+    per["take_rows"] = [take_case(torch, F, ops, ref, gen, cfg)]
+    out = {name: tick_summary(recs) for name, recs in per.items()}
+    if cfg.family == "vlm":          # the paged drain's attention
+        out["paged_attention"] = check_paged_attention(torch, F, ops, ref,
+                                                       gen, cfg)
+    head = per["packed_matmul"][-1]
+    if head["transpose"]:
+        out["packed_matmul"]["transposed_head"] = {
+            k: head[k] for k in ("K", "N", "max_err", "tol", "kernel_ms",
+                                 "host_issue_ms", "plain_ms", "bound_ms",
+                                 "library_ms")}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve full-width qwen3-8b, deepseek-moe-16b and the four others
 # ---------------------------------------------------------------------------
 
 def path_launches(cfg, ticks: int, positions: int, paged: bool = False,
                   spec_k: int = 0):
     """Kernel launches of a drain with ``ticks`` decode ticks and
-    ``positions`` prefill positions, by the code of the decode body: per
-    layer q, k, v and o products, the MLP's three (dense) or the router
-    and the shared experts' three (moe), the three expert banks (moe),
-    one KV append (a pack launch for K and V) and one attention
-    (kv_decode, or paged_attention on a paged cache); per body one
-    embedding gather; a head (lm_head product) per body that makes
-    logits (prefill drops them). A plain tick is one body with a head.
-    A speculative tick (``spec_k`` = k) is k+1 draft bodies with k heads
-    (the last only appends d_k's KV row) and k+1 verify bodies with k+1
-    heads, and the draft prefills every position the target does."""
-    L = cfg.n_layers
-    moe = cfg.family == "moe"
-    pm = 8 if moe else 7
+    ``positions`` prefill positions, by the code of the decode body: its
+    packed products (``tick_products``), the three expert banks (moe),
+    per layer with self-attention one KV append (a pack launch for K and
+    V) and one attention (kv_decode, or paged_attention on a paged
+    cache), per cross-attention layer a kv_decode over the dense cross
+    cache (encdec, paged or not); per body one embedding gather; a head
+    per body that makes logits (prefill drops them). A plain tick is one
+    body with a head; the recurrent families have no prefill (their
+    prompts go through ticks). A speculative tick (``spec_k`` = k) is
+    k+1 draft bodies with k heads (the last only appends d_k's KV row)
+    and k+1 verify bodies with k+1 heads, and the draft prefills every
+    position the target does. ``packed_matmul_transposed`` counts the
+    heads again where the table is tied (its orientation's own count,
+    within packed_matmul's)."""
+    products = tick_products(cfg)
+    per_body = sum(calls for _, _, calls, _ in products[:-1])
+    self_layers, cross = cfg.n_kv_layers, cross_layers(cfg)
     if spec_k:
         bodies = ticks * 2 * (spec_k + 1) + 2 * positions
         heads = ticks * (2 * spec_k + 1)
     else:
         bodies, heads = ticks + positions, ticks
-    return {"packed_matmul": bodies * pm * L + heads,
-            "pack": bodies * L,
-            "kv_decode": 0 if paged else bodies * L,
+    return {"packed_matmul": bodies * per_body + heads,
+            "packed_matmul_transposed": heads if products[-1][3] else 0,
+            "pack": bodies * self_layers,
+            "kv_decode": bodies * ((0 if paged else self_layers) + cross),
             "take_rows": bodies,
-            "packed_matmul_batched": bodies * 3 * L if moe else 0,
-            "paged_attention": bodies * L if paged else 0,
+            "packed_matmul_batched": (bodies * 3 * cfg.n_layers
+                                      if cfg.family == "moe" else 0),
+            "paged_attention": bodies * self_layers if paged else 0,
             "unpack": 0, "convert": 0, "truncate": 0}
 
 
@@ -1387,25 +1620,37 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
 # ---------------------------------------------------------------------------
 
 def parity(torch, np, cfg):
-    """PARITY_STEPS decode steps of ``cfg`` cut to 2 layers in f32 (at
-    full width the CPU's plain versions take ~90 s a step), on the card
-    against the CPU with the same packed weights: max abs logit error
-    (tolerance 1e-3, argmax equal). For the MoE family also the routing
+    """PARITY_STEPS decode steps of ``cfg`` cut to 2 layers (the hybrid
+    to 4: one group of 2 RG-LRU layers and an attention layer, and one
+    tail layer) in f32, at full width, on the card against the CPU with
+    the same packed weights: max abs logit error (tolerance 1e-3, argmax
+    equal). encdec attends a cross cache of random values (the engine's
+    is all zeros) over all its rows. For the MoE family also the routing
     choices (token, k) that ``blocks.route`` gave every MoE call on both
-    sides, and how many of them differ: a near-tie in the router can flip an expert when the
-    router's sums run in another order."""
+    sides, and how many of them differ: a near-tie in the router can
+    flip an expert when the router's sums run in another order."""
     from repro_torch.core.compress import repack, uniform_plan
     from repro_torch.core.tensor_store import tree_to
+    from repro_torch.kernels import ops
     from repro_torch.models import blocks as B
     from repro_torch.models.lm import LM
 
-    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    small = dataclasses.replace(
+        cfg, n_layers=4 if cfg.family == "hybrid" else 2, dtype="float32")
     lm_g, lm_c = LM(small, device="cuda"), LM(small, device="cpu")
-    params = lm_g.init(torch.Generator(device="cuda").manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = lm_g.init(gen)
     params = repack(params, uniform_plan(params, 16))
     params_c = tree_to(params, "cpu")
     st_g = lm_g.init_decode_state(SLOTS, 32)
-    st_c = lm_c.init_decode_state(SLOTS, 32)
+    if small.family == "encdec":
+        for name in ("ck", "cv"):
+            rows = st_g["cross"][name]
+            rows.copy_(ops.pack(torch.randn(
+                rows.shape[:-1] + (small.resolved_head_dim,), generator=gen,
+                device="cuda"), small.compression.kv_bits))
+        st_g["clen"].fill_(small.encoder_seq)
+    st_c = tree_to(st_g, "cpu")
     rng = np.random.default_rng(1)
     choices = {"cuda": [], "cpu": []}
     route = B.route
@@ -1443,7 +1688,8 @@ def parity(torch, np, cfg):
         assert g.shape == c.shape and g.shape[0] == PARITY_STEPS * 2 * SLOTS
         routing = (f"; routing choices differing card vs CPU: "
                    f"{int((g != c).sum())} of {g.numel()}")
-    log(f"parity: {small.name} 2 layers f32, {PARITY_STEPS} decode step(s) "
+    log(f"parity: {small.name} {small.n_layers} layers f32, {PARITY_STEPS} "
+        "decode step(s) "
         "card vs CPU: "
         f"max abs logit err {worst:.3g} (tol 1e-3), argmax equal{routing} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1646,6 +1892,42 @@ def speculative_parity(torch, np, cfg):
         f"{json.dumps(greedy)} ({time.perf_counter() - t0:.1f} s)")
 
 
+def window_parity(torch, np, cfg):
+    """The hybrid engine on ``cfg``'s reduced config with ``attn_window``
+    8 and 4 layers (one group and one tail layer), f32: six requests on
+    four slots whose sequences run past the window, so each attention
+    ring wraps, on the card against the CPU with the same AF16 packed
+    weights: identical greedy tokens."""
+    from repro_torch.core.compress import repack, uniform_plan
+    from repro_torch.core.tensor_store import tree_to
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import ServeEngine
+
+    small = dataclasses.replace(cfg.reduced(), attn_window=8, n_layers=4)
+    params = LM(small, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(6))
+    params = repack(params, uniform_plan(params, 16))
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(1, small.vocab_size, n)]
+               for n in (12, 3, 9, 1, 14, 6)]
+    t0 = time.perf_counter()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(small, max_seq_len=32, max_slots=4,
+                          pack_weights=True, params=tree_to(params, dev),
+                          device=dev)
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.run_until_drained()
+        outs[dev] = [eng.result(r) for r in rids]
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"{small.name} window {small.attn_window}: card "
+                             f"and CPU tokens differ: {outs}")
+    log(f"window parity: {small.name} {small.n_layers} layers f32, window "
+        f"{small.attn_window}, {len(prompts)} requests on 4 slots, sequences "
+        f"up to {max(map(len, prompts)) + 5} positions: card and CPU tokens "
+        f"identical ({time.perf_counter() - t0:.1f} s)")
+
+
 def build_summary(log_text: str, kernel: str = "") -> str:
     """Registers, static shared memory and spills of the kernels the
     ``-Xptxas -v`` report names, or of those whose name holds
@@ -1671,18 +1953,16 @@ def pmm_smem(build):
             for b in WIDTHS for dt in ("bf16", "f32")}
 
 
-def attend_smem(build, qwen, moe):
+def attend_smem(build, cases):
     """Dynamic shared memory a block of the attention body takes at the
-    phase-2 shapes: qwen3-8b's tick and check (AF16), deepseek's tick."""
+    phase-2 shapes: (name, config, cache rows) of ``cases``, AF16."""
     import torch
 
     from repro_torch.core.bitpack import packed_group_words
     from repro_torch.kernels.kv_decode import chunk_plan, tile_rows
     sms = build.sm_count(torch.empty(0, device="cuda"))
     out = {}
-    for name, cfg, seq in (("qwen3_8b tick", qwen, MAX_SEQ),
-                           ("qwen3_8b check", qwen, 4096),
-                           ("deepseek_moe_16b tick", moe, MOE_MAX_SEQ)):
+    for name, cfg, seq in cases:
         d = cfg.resolved_head_dim
         row = packed_group_words(d, 16) * 4
         chunk, _ = chunk_plan(SLOTS * cfg.n_kv_heads, seq, sms)
@@ -1718,15 +1998,24 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
 
     qwen, moe = get_config("qwen3_8b"), get_config("deepseek_moe_16b")
+    fams = [get_config(a) for a in FAMILY_ARCHS]
     t0 = time.perf_counter()
     lib_path = build.build()
     build.library()
     build_log = (lib_path.parent / "build.log").read_text()
     log(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.parent.name}); "
         + build_summary(build_log))
+    pali, whisper, rgemma = fams[0], fams[1], fams[3]
     log("kvd_partial (kv_decode and paged_attention's body): "
         + build_summary(build_log, "kvd_partial") + "; dynamic shared "
-        + json.dumps(attend_smem(build, qwen, moe)))
+        + json.dumps(attend_smem(build, (
+            ("qwen3_8b tick", qwen, MAX_SEQ), ("qwen3_8b check", qwen, 4096),
+            ("deepseek_moe_16b tick", moe, MOE_MAX_SEQ),
+            ("paligemma_3b tick", pali, MOE_MAX_SEQ),
+            ("paligemma_3b check", pali, 4096),
+            ("recurrentgemma_9b tick", rgemma, MOE_MAX_SEQ),
+            ("whisper_small self", whisper, MOE_MAX_SEQ),
+            ("whisper_small cross", whisper, whisper.encoder_seq)))))
     log("pmm_kernel (packed_matmul's normal orientation): "
         + build_summary(build_log, "pmm_kernel") + "; pmm_t_kernel "
         "(transposed): " + build_summary(build_log, "pmm_t_kernel")
@@ -1734,15 +2023,21 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}                     # model -> kernel -> numbers per tick
-    for cfg, seq in ((qwen, MAX_SEQ), (moe, MOE_MAX_SEQ)):
-        r = {"packed_matmul": check_packed_matmul(torch, ops, ref, gen, cfg),
-             "pack": check_pack(torch, ops, ref, gen, cfg),
-             "kv_decode": check_kv_decode(torch, F, ops, ref, gen, cfg, seq),
-             "take_rows": check_take_rows(torch, F, ops, ref, gen, cfg)}
+    for cfg, seq in ((qwen, MAX_SEQ), (moe, MOE_MAX_SEQ),
+                     *((f, MOE_MAX_SEQ) for f in fams)):
+        if cfg.family in ("dense", "moe"):
+            r = {"packed_matmul": check_packed_matmul(torch, ops, ref, gen,
+                                                      cfg),
+                 "pack": check_pack(torch, ops, ref, gen, cfg),
+                 "kv_decode": check_kv_decode(torch, F, ops, ref, gen, cfg,
+                                              seq),
+                 "take_rows": check_take_rows(torch, F, ops, ref, gen, cfg)}
+        else:
+            r = check_family(torch, F, ops, ref, gen, cfg, seq)
         if cfg.family == "moe":
             r["packed_matmul_batched"] = check_packed_matmul_batched(
                 torch, ops, ref, gen, cfg)
-        else:
+        elif cfg.family == "dense":
             r["paged_attention"] = check_paged_attention(torch, F, ops, ref,
                                                          gen, cfg)
         results[cfg.name] = r
@@ -1777,11 +2072,33 @@ def main() -> int:
     launches[moe.name] = serve(torch, moe, random_prompts(np, moe, MOE_PROMPTS),
                                MOE_NEW_TOKENS, MOE_MAX_SEQ)[0]
     torch.cuda.empty_cache()
+    heads = {}                       # tied model -> transposed launches
+    for cfg in fams:
+        prompts = random_prompts(np, cfg, MOE_PROMPTS)
+        launches[cfg.name], outs, eng, _ = serve(
+            torch, cfg, prompts, MOE_NEW_TOKENS, MOE_MAX_SEQ)
+        if cfg.family == "vlm":
+            launches[cfg.name + " paged"], paged_outs, paged, _ = serve(
+                torch, cfg, prompts, MOE_NEW_TOKENS, MOE_MAX_SEQ, paged=True,
+                params=eng.params)
+            del paged                # its pool, before the next family's
+            if paged_outs != outs:
+                raise AssertionError(f"{cfg.name}: paged greedy tokens differ "
+                                     f"from the dense drain's: {paged_outs} "
+                                     f"!= {outs}")
+            log(f"{cfg.name}: paged and dense greedy tokens identical")
+        if cfg.tie_embeddings:       # the wrapper's count; serve() held
+            heads[cfg.name] = sum(   # it to one a decode call, and > 0
+                launches[m]["packed_matmul_transposed"]
+                for m in (cfg.name, cfg.name + " paged") if m in launches)
+        del eng
+        torch.cuda.empty_cache()
     log(f"served ({time.perf_counter() - t_start:.0f} s so far)")
-    for cfg in (qwen, moe):
+    for cfg in (qwen, moe, *fams):
         parity(torch, np, cfg)
     paged_parity(torch, np, qwen)
     speculative_parity(torch, np, qwen)
+    window_parity(torch, np, fams[-1])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1812,6 +2129,11 @@ def main() -> int:
             "per_tick_by_model": per_tick,
             **{k: r[k] for k in ("pack_call", "per_width", "many_rows")
                if k in r}})
+        if name == "packed_matmul":  # the tied heads' transposed orientation
+            kernels[-1]["transposed_heads"] = {
+                m: dict(rm[name]["transposed_head"], launches=heads[m])
+                for m, rm in results.items()
+                if "transposed_head" in rm.get(name, {})}
     log(f"total {time.perf_counter() - t_start:.0f} s; card {smi.stdout.strip()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

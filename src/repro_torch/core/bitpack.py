@@ -9,6 +9,8 @@ int32 tensors (see ``repro_torch.core.formats``). Stream packing
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from repro_torch.core.formats import SLICE_BITS, _srl
@@ -62,6 +64,10 @@ def pack_groups(codes: torch.Tensor, width: int) -> torch.Tensor:
 def unpack_groups(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
     """Inverse of :func:`pack_groups`: words (..., G*width) -> codes (..., n)."""
     _check_width(width)
+    if width == 16 and sys.byteorder == "little":
+        # two codes a word, the low half first: the words' int16 lanes
+        lanes = words.to(torch.int32).contiguous().view(torch.int16)
+        return (lanes.to(torch.int32) & 0xFFFF)[..., :n]
     groups = words.shape[-1] // width
     g = words.to(torch.int32).reshape(words.shape[:-1] + (groups, width))
     cols = []

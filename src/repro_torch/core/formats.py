@@ -163,12 +163,25 @@ def encode_float(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
 # Decode: narrow float code -> f32 (the Value Converter, Section 3.2.5)
 # ---------------------------------------------------------------------------
 
+def _decode_binary16(code: torch.Tensor) -> torch.Tensor:
+    """AF16 (e5m10, bias 15) is IEEE binary16, whose conversion to f32 is
+    exact: the codes as float16 lanes, converted, NaNs then made
+    canonical (sign | 0x7FC00000) as the general decode makes them."""
+    half = ((code & 0xFFFF) ^ 0x8000) - 0x8000             # sign-extended
+    out = half.to(torch.int16).view(torch.float16).to(torch.float32)
+    nan = torch.where(half < 0, _INT32_MIN | 0x7FC00000, 0x7FC00000)
+    return torch.where(torch.isnan(out),
+                       nan.to(torch.int32).view(torch.float32), out)
+
+
 def decode_float(code: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
     """Expand ``fmt`` codes (int32) to float32. Exact; every NaN code
     becomes the canonical mantissa ``1 << 22`` with its sign."""
     code = code.to(torch.int32)
     if fmt.total_bits == 32:
         return code.contiguous().view(torch.float32)
+    if (fmt.exp_bits, fmt.mantissa_bits) == (5, 10):
+        return _decode_binary16(code)
     m_t = fmt.mantissa_bits
     maxe = fmt.max_biased_exp
     sign = (code >> (fmt.total_bits - 1)) & 1

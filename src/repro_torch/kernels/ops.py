@@ -184,7 +184,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                     d)
 
 
-_KERNELS = {"packed_matmul": _packed_matmul.launches, "pack": _pack.launches,
+_KERNELS = {"packed_matmul": _packed_matmul.launches,
+            # of those, the transposed orientation's (a tied head)
+            "packed_matmul_transposed": _packed_matmul.transposed_launches,
+            "pack": _pack.launches,
             "kv_decode": _kv_decode.launches, "take_rows": _take.launches,
             "packed_matmul_batched": _packed_matmul_batched.launches,
             "paged_attention": _paged_attention.launches,

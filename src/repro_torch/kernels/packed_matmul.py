@@ -19,6 +19,8 @@ from repro_torch.kernels.build import (LaunchCount, check, library, require,
                                        sm_count, stream_ptr)
 
 launches = LaunchCount()
+# the launches of ``launches`` that ran the transposed orientation
+transposed_launches = LaunchCount()
 
 BN, BM, BK = 64, 8, 32           # the normal orientation's tiles (csrc)
 BN_T = 256                       # the transposed one's columns per block
@@ -87,4 +89,5 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
         k_chunk, stream_ptr(x))
     check(rc, "packed_matmul")
     launches.n += 1
+    transposed_launches.n += int(transpose)
     return out

@@ -8,8 +8,13 @@
         [--speculative 4] [--draft-bits 12] [--adaptive] \
         [--sample] [--sample-seed N]
 
-Runs on the CUDA device unless ``--device cpu`` is given (and raises
-without a card). ``--reduced`` serves the small same-family config; by
+``--arch`` names any config of ``repro_torch.configs``: the dense and
+MoE families, paligemma_3b (vlm), whisper_small (encdec),
+falcon_mamba_7b (ssm) and recurrentgemma_9b (hybrid). The recurrent
+families (ssm, hybrid) cannot page or speculate: ``--paged`` and
+``--speculative`` exit with the engine's reason, as do other settings
+the engine refuses. Runs on the CUDA device unless ``--device cpu`` is
+given (and raises without a card). ``--reduced`` serves the small same-family config; by
 default the full-width config is served (the reference's launcher
 cannot turn ``--reduced`` off). ``--paged`` pages the KV cache: pages
 of ``--kv-page-size`` rows from a pool of ``--kv-pool-pages`` (default
@@ -88,6 +93,7 @@ def main(argv=None) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.compress import CompressionPlan
+    from repro_torch.models.lm import Refused
     from repro_torch.serving import ServeEngine, SpeculativeEngine
 
     cfg = get_config(args.arch)
@@ -103,12 +109,15 @@ def main(argv=None) -> None:
               kv_pool_pages=args.kv_pool_pages, paged_attn=args.paged_attn,
               device=args.device, greedy=not args.sample,
               sample_seed=args.sample_seed)
-    if args.speculative:
-        eng = SpeculativeEngine(cfg, k=args.speculative,
-                                draft_bits=args.draft_bits,
-                                adaptive=args.adaptive, **kw)
-    else:
-        eng = ServeEngine(cfg, **kw)
+    try:
+        if args.speculative:
+            eng = SpeculativeEngine(cfg, k=args.speculative,
+                                    draft_bits=args.draft_bits,
+                                    adaptive=args.adaptive, **kw)
+        else:
+            eng = ServeEngine(cfg, **kw)
+    except Refused as e:           # a mode or setting the engine refuses
+        ap.error(str(e))
     rng = np.random.default_rng(0)
     rids = [eng.submit([int(t) for t in rng.integers(1, cfg.vocab_size, 4)],
                        max_new_tokens=args.max_new_tokens)

@@ -1,15 +1,23 @@
-"""Transformer blocks: init and single-token decode.
+"""Blocks of every family: init and single-token decode.
 
-Port of the attention, MLP and MoE parts of ``repro.models.blocks``.
-``init_*`` returns the parameters of all ``n`` layers stacked on a
-leading axis (the reference stacks per-layer inits with ``vmap``);
-``*_decode`` / ``mlp_apply`` / ``moe_apply`` take one layer's slice.
-Mamba and RG-LRU blocks come with ROADMAP A12.
+Port of the decode half of ``repro.models.blocks``: attention (causal,
+windowed or cross), MLP, MoE, Mamba-1 and RG-LRU. ``init_*`` returns
+the parameters of every layer stacked on leading axes ``n`` (an int, or
+a tuple for the hybrid family's (groups, per group) stacks; the
+reference stacks per-layer inits with ``vmap``); ``*_decode`` /
+``mlp_apply`` / ``moe_apply`` take one layer's slice. The train and
+prefill forms (``*_apply`` over a sequence, ``_causal_conv``) come with
+ROADMAP A13.
+
+The leaves named in ``PLAIN_LEAVES`` are read whole through
+``layers.unpack_maybe``, as the reference reads them: norm scales, the
+depthwise conv, the SSM and RG-LRU diagonals. No kernel takes them, so
+``LM.layer_params`` decodes a packed one once per parameter tree.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,21 +30,48 @@ from repro_torch.models.attention import (append_kv_pool_row,
 from repro_torch.models.config import ModelConfig
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, n: int) -> Dict:
+PLAIN_LEAVES = frozenset({"ln", "q_norm", "k_norm", "conv_w", "conv_b",
+                          "dt_bias", "a_param", "d_param", "rg_a", "rg_wr",
+                          "rg_wi"})
+
+Stack = Union[int, Tuple[int, ...]]
+
+
+def _lead(n: Stack) -> Tuple[int, ...]:
+    return (n,) if isinstance(n, int) else tuple(n)
+
+
+def _full(gen: torch.Generator, n: Stack, shape, value: float,
+          dtype: torch.dtype) -> torch.Tensor:
+    return torch.full(_lead(n) + tuple(shape), value, dtype=dtype,
+                      device=gen.device)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, n: Stack) -> Dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
-    dt = cfg.compute_dtype
+    dt, s = cfg.compute_dtype, _lead(n)
     p = {
-        "wq": L.init_dense(gen, (n, d, h * hd), dtype=dt),
-        "wk": L.init_dense(gen, (n, d, hkv * hd), dtype=dt),
-        "wv": L.init_dense(gen, (n, d, hkv * hd), dtype=dt),
-        "wo": L.init_dense(gen, (n, h * hd, d), dtype=dt),
-        "ln": torch.zeros((n, d), dtype=dt, device=gen.device),
+        "wq": L.init_dense(gen, s + (d, h * hd), dtype=dt),
+        "wk": L.init_dense(gen, s + (d, hkv * hd), dtype=dt),
+        "wv": L.init_dense(gen, s + (d, hkv * hd), dtype=dt),
+        "wo": L.init_dense(gen, s + (h * hd, d), dtype=dt),
+        "ln": _full(gen, n, (d,), 0.0, dt),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros((n, hd), dtype=dt, device=gen.device)
-        p["k_norm"] = torch.zeros((n, hd), dtype=dt, device=gen.device)
+        p["q_norm"] = _full(gen, n, (hd,), 0.0, dt)
+        p["k_norm"] = _full(gen, n, (hd,), 0.0, dt)
     return p
+
+
+def _project_q(p: Dict, x: torch.Tensor, cfg: ModelConfig):
+    """(normed x, q (B, 1, H, D) before rope)."""
+    xn = L.rms_norm(x, p["ln"])
+    q = L.linear(xn, p["wq"]).reshape(x.shape[0], 1, cfg.n_heads,
+                                      cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"])
+    return xn, q
 
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -44,11 +79,8 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """The decode step's q (B, 1, H, D), k and v (B, 1, Hkv, D): norms,
     projections and rope."""
     b = x.shape[0]
-    hd, h, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    xn = L.rms_norm(x, p["ln"])
-    q = L.linear(xn, p["wq"]).reshape(b, 1, h, hd)
-    if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"])
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    xn, q = _project_q(p, x, cfg)
     k = L.linear(xn, p["wk"]).reshape(b, 1, hkv, hd)
     v = L.linear(xn, p["wv"]).reshape(b, 1, hkv, hd)
     if cfg.qk_norm:
@@ -65,15 +97,30 @@ def _attn_out(p: Dict, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 
 def attention_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                     state: Dict, positions: torch.Tensor, kv_bits: int
+                     state: Dict, positions: torch.Tensor, kv_bits: int,
+                     window: int = 0, cross: bool = False
                      ) -> Tuple[torch.Tensor, Dict]:
-    """x: (B, 1, d); state {k, v, len}: one layer's cache, appended in
-    place at ``len`` and packed at ``kv_bits`` (the layer's own width
-    under per-layer KV widths)."""
+    """x: (B, 1, d). Self-attention: state {k, v, len}, one layer's
+    cache packed at ``kv_bits`` (the layer's own width under per-layer
+    KV widths), appended in place at ``len``, or with a ``window`` at
+    ``len % window``, a ring of which ``min(len + 1, window)`` rows are
+    read. Cross-attention (``cross``): state {ck, cv, clen}, q alone
+    (no rope) over ``clen`` rows of the cross cache, which stays as it
+    is."""
+    if cross:
+        _, q = _project_q(p, x, cfg)
+        o = decode_attention(q[:, 0], state["ck"], state["cv"],
+                             state["clen"], kv_bits)
+        return _attn_out(p, x, o), state
     q, k, v = _project_qkv(p, x, cfg, positions)
-    kc, vc = update_kv_cache(state["k"], state["v"], k[:, 0], v[:, 0],
-                             state["len"], kv_bits)
-    o = decode_attention(q[:, 0], kc, vc, state["len"] + 1, kv_bits)
+    lens = state["len"]
+    slot = lens % window if window else lens
+    kc, vc = update_kv_cache(state["k"], state["v"], k[:, 0], v[:, 0], slot,
+                             kv_bits)
+    eff_len = lens + 1
+    if window:
+        eff_len = eff_len.clamp(max=window)
+    o = decode_attention(q[:, 0], kc, vc, eff_len, kv_bits)
     return _attn_out(p, x, o), dict(state, k=kc, v=vc)
 
 
@@ -92,15 +139,15 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return _attn_out(p, x, o), {"k": kc, "v": vc}
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: int) -> Dict:
-    d, f, dt = cfg.d_model, cfg.d_ff, cfg.compute_dtype
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, n: Stack) -> Dict:
+    d, f, dt, s = cfg.d_model, cfg.d_ff, cfg.compute_dtype, _lead(n)
     p = {
-        "w_in": L.init_dense(gen, (n, d, f), dtype=dt),
-        "w_out": L.init_dense(gen, (n, f, d), dtype=dt),
-        "ln": torch.zeros((n, d), dtype=dt, device=gen.device),
+        "w_in": L.init_dense(gen, s + (d, f), dtype=dt),
+        "w_out": L.init_dense(gen, s + (f, d), dtype=dt),
+        "ln": _full(gen, n, (d,), 0.0, dt),
     }
     if cfg.gated_mlp:
-        p["w_gate"] = L.init_dense(gen, (n, d, f), dtype=dt)
+        p["w_gate"] = L.init_dense(gen, s + (d, f), dtype=dt)
     return p
 
 
@@ -206,3 +253,119 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             sp = p[name]
             y = y + L.mlp(xn, sp["w_in"], sp.get("w_gate"), sp["w_out"], True)
     return x + y
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (falcon-mamba) and RG-LRU (recurrentgemma): decode forms
+# ---------------------------------------------------------------------------
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) with no threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _conv_step(p: Dict, state: Dict, xi: torch.Tensor):
+    """One step of the depthwise causal conv: the history (B, d_conv, C)
+    of the state's trailing inputs and xi (B, 1, C), and its output
+    (B, C) with the bias."""
+    hist = torch.cat([state["conv"], xi], dim=1)
+    w = L.unpack_maybe(p["conv_w"], xi.dtype)              # (C, d_conv)
+    xc = (torch.einsum("bwc,cw->bc", hist, w)
+          + L.unpack_maybe(p["conv_b"], xi.dtype))
+    return hist, xc
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: Stack) -> Dict:
+    d, di, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, dt, s = cfg.resolved_dt_rank, cfg.compute_dtype, _lead(n)
+    f32 = torch.float32
+    a_init = torch.log(torch.arange(1, ns + 1, dtype=f32,
+                                    device=gen.device)).expand(s + (di, ns))
+    return {
+        "in_proj": L.init_dense(gen, s + (d, 2 * di), dtype=dt),
+        "conv_w": L.init_dense(gen, s + (di, cfg.d_conv), dtype=dt),
+        "conv_b": _full(gen, n, (di,), 0.0, dt),
+        "x_proj": L.init_dense(gen, s + (di, dtr + 2 * ns), dtype=dt),
+        "dt_proj": L.init_dense(gen, s + (dtr, di), dtype=dt),
+        "dt_bias": _full(gen, n, (di,), 0.0, f32),
+        "a_param": a_init.contiguous(),          # A = -exp(a_param), f32
+        "d_param": _full(gen, n, (di,), 1.0, f32),
+        "out_proj": L.init_dense(gen, s + (di, d), dtype=dt),
+        "ln": _full(gen, n, (d,), 0.0, dt),
+    }
+
+
+def _ssm_params(p: Dict, xc: torch.Tensor, cfg: ModelConfig):
+    """dt (f32, softplus), B and C (f32) and A = -exp(a_param) of xc."""
+    dtr, ns = cfg.resolved_dt_rank, cfg.ssm_state
+    bcdt = L.linear(xc, p["x_proj"], "...c,cf->...f")
+    dt_r, bm, cm = torch.split(bcdt, [dtr, ns, ns], dim=-1)
+    dt_full = L.linear(dt_r, p["dt_proj"], "...r,rc->...c")
+    dt = _softplus(dt_full.float()
+                   + L.unpack_maybe(p["dt_bias"], torch.float32))
+    a = -torch.exp(L.unpack_maybe(p["a_param"], torch.float32))  # (di, n)
+    return dt, bm.float(), cm.float(), a
+
+
+def mamba_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """state: conv (B, d_conv-1, di) trailing inputs; ssm (B, di, n)."""
+    xn = L.rms_norm(x, p["ln"])
+    xi, z = L.linear(xn, p["in_proj"]).chunk(2, dim=-1)   # (B, 1, di)
+    hist, xc = _conv_step(p, state, xi)
+    xc = F.silu(xc)[:, None, :]
+    dt, bm, cm, a = _ssm_params(p, xc, cfg)
+    dt_t, b_t, c_t = dt[:, 0], bm[:, 0], cm[:, 0]
+    xcf = xc[:, 0].float()
+    da = torch.exp(dt_t[..., None] * a[None])
+    h = da * state["ssm"] + (dt_t * xcf)[..., None] * b_t[:, None, :]
+    y = (torch.einsum("bcn,bn->bc", h, c_t)
+         + xcf * L.unpack_maybe(p["d_param"], torch.float32))
+    y = y[:, None, :].to(x.dtype) * F.silu(z)
+    out = x + L.linear(y, p["out_proj"], "...c,cd->...d")
+    return out, dict(state, conv=hist[:, 1:], ssm=h)
+
+
+RG_C = 8.0                                  # Griffin's fixed power
+
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig, n: Stack) -> Dict:
+    d, lw = cfg.d_model, cfg.lru_width or cfg.d_model
+    dt, s, f32 = cfg.compute_dtype, _lead(n), torch.float32
+    return {
+        "rg_in_w": L.init_dense(gen, s + (d, lw), dtype=dt),
+        "rg_gate_w": L.init_dense(gen, s + (d, lw), dtype=dt),
+        "conv_w": L.init_dense(gen, s + (lw, cfg.d_conv), dtype=dt),
+        "conv_b": _full(gen, n, (lw,), 0.0, dt),
+        "rg_a": _full(gen, n, (lw,), -1.5, f32),    # sigmoid ~ 0.18
+        "rg_wr": _full(gen, n, (lw,), 0.0, f32),    # diagonal gates
+        "rg_wi": _full(gen, n, (lw,), 0.0, f32),
+        "rg_out": L.init_dense(gen, s + (lw, d), dtype=dt),
+        "ln": _full(gen, n, (d,), 0.0, dt),
+    }
+
+
+def _rglru_gates(p: Dict, xc: torch.Tensor):
+    """(a, sqrt(1 - a^2) * i * x) in f32 for the conv output xc."""
+    xf = xc.float()
+    r = torch.sigmoid(xf * L.unpack_maybe(p["rg_wr"], torch.float32))
+    i = torch.sigmoid(xf * L.unpack_maybe(p["rg_wi"], torch.float32))
+    log_a = -RG_C * r * _softplus(L.unpack_maybe(p["rg_a"], torch.float32))
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    return a, mult * i * xf
+
+
+def rglru_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """state: conv (B, d_conv-1, lw); h (B, lw)."""
+    xn = L.rms_norm(x, p["ln"])
+    xi = L.linear(xn, p["rg_in_w"])                       # (B, 1, lw)
+    gate = F.gelu(L.linear(xn, p["rg_gate_w"]), approximate="tanh")
+    hist, xc = _conv_step(p, state, xi)
+    a, bx = _rglru_gates(p, xc[:, None, :])
+    h = a[:, 0] * state["h"] + bx[:, 0]
+    y = h[:, None, :].to(x.dtype) * gate
+    out = x + L.linear(y, p["rg_out"], "...c,cd->...d")
+    return out, dict(state, conv=hist[:, 1:], h=h)

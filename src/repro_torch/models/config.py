@@ -7,8 +7,9 @@ only ``compute_dtype`` maps to a torch dtype.
 One ``ModelConfig`` describes any of: dense GQA decoder LMs, fine-grained
 MoE, MoE + dense residual, Mamba-1 SSM, RG-LRU/local-attention hybrids,
 encoder-decoder audio backbones, and VLM (prefix + decoder) backbones.
-The port serves the dense family so far. ``reduced()`` derives the small
-same-family variant used by the CPU tests.
+The port serves every family (decode only; prefill and training come
+with ROADMAP A13). ``reduced()`` derives the small same-family variant
+used by the CPU tests.
 """
 from __future__ import annotations
 
@@ -132,9 +133,15 @@ class ModelConfig:
         return self.dt_rank or max(self.d_model // 16, 1)
 
     @property
+    def recurrent(self) -> bool:
+        """The SSM / hybrid families: decode folds every token into
+        recurrent state, which has no KV rows to page or roll back."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def sub_quadratic(self) -> bool:
         """Eligible for the long_500k shape (SSM / hybrid families)."""
-        return self.family in ("ssm", "hybrid")
+        return self.recurrent
 
     @property
     def has_decode(self) -> bool:

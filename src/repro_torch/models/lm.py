@@ -1,10 +1,9 @@
-"""Model assembly for the dense and MoE families: init, decode state,
-decode steps.
+"""Model assembly for every family: init, decode state, decode steps.
 
 Port of the serving surface of ``repro.models.lm.LM``:
 
   * ``init(gen)``                          -> params (stacked (L, ...) leaves)
-  * ``init_decode_state(batch, seq_len)``  -> zeroed dense per-slot KV state
+  * ``init_decode_state(batch, seq_len)``  -> zeroed per-slot decode state
   * ``init_paged_decode_state(batch, seq_len, page_size, n_pages)``
                                            -> zeroed page pool + page table
   * ``decode_step(params, state, tokens)`` -> (logits (B, 1, V), state)
@@ -16,18 +15,29 @@ Port of the serving surface of ``repro.models.lm.LM``:
 The reference's ``lax.scan`` over the stacked layers becomes a Python
 loop over layer slices; a slice of a contiguous stacked payload is
 contiguous, so the kernels read it in place. The per-layer views are
-built once per parameter tree (``layer_params``). The KV cache is
-updated in place (the returned state shares it with the one passed in);
-``len`` is a new tensor each step. The MoE family runs ``moe_apply`` in
-place of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
-per-layer 3-D banks. Other families come with ROADMAP A12.
+built once per parameter tree (``layer_params``). The decode state is
+updated in place (the returned state shares its caches and recurrent
+state with the one passed in); ``len`` is a new tensor each step.
 
-Per-layer KV widths (``compression.kv_layer_bits``) take the reference's
-width-segmented layout: ``kv`` is a tuple of ``{"k", "v"}`` buffers, one
-per contiguous run of equal-width layers (``cfg.kv_segments()``), each
-packed at its own width, dense or as pools over one page axis and one
-table. Each layer appends and attends at its own width. A uniform
-config keeps the single stacked dict.
+Families: dense and vlm (attention and MLP; vlm serving feeds tokens
+only, the image prefix enters at prefill, A13), moe (``moe_apply`` in
+place of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
+per-layer 3-D banks), encdec (decoder self-attention, cross-attention
+over the cross cache ``cross`` {ck, cv} for ``clen`` rows, MLP; the
+encoder runs at prefill, A13), ssm (Mamba-1 blocks over ``conv`` and
+``ssm`` state) and hybrid (groups of ``pattern_rec`` RG-LRU layers and
+one local-attention layer, each followed by an MLP, then a tail of
+RG-LRU layers; the attention cache is a ring of
+``min(attn_window, seq_len)`` rows). The recurrent families cannot roll
+their state back (``supports_rollback``), so they neither page nor
+speculate, and the engine feeds their prompts one token a tick.
+
+Per-layer KV widths (``compression.kv_layer_bits``, dense, vlm and moe)
+take the reference's width-segmented layout: ``kv`` is a tuple of
+``{"k", "v"}`` buffers, one per contiguous run of equal-width layers
+(``cfg.kv_segments()``), each packed at its own width, dense or as pools
+over one page axis and one table. Each layer appends and attends at its
+own width. A uniform config keeps the single stacked dict.
 
 A paged state (one with a ``table``) takes the fused route by default
 (``paged_attn``): each layer appends straight to its pool and attends
@@ -50,6 +60,13 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+
+
+class Refused(ValueError):
+    """A mode or setting the model or its engine does not serve (paged KV
+    or rollback for recurrent state, per-layer KV widths it cannot lay
+    out, a speculative setting out of range): the caller's to change,
+    unlike a fault inside."""
 
 
 def layer_slice(tree: Dict, i: int) -> Dict:
@@ -103,16 +120,24 @@ class LM:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (ROADMAP A12)")
+        if self.cfg.family not in ("dense", "moe", "vlm", "encdec", "ssm",
+                                   "hybrid"):
+            raise ValueError(self.cfg.family)
+
+    def _hybrid_shape(self) -> Tuple[int, int, int]:
+        """(layers per group, groups, tail layers) of the hybrid stack."""
+        cfg = self.cfg
+        g = cfg.pattern_rec + cfg.pattern_attn
+        groups = cfg.n_layers // g
+        return g, groups, cfg.n_layers - groups * g
 
     # ------------------------------------------------------------------ init
     def init(self, gen: Optional[torch.Generator] = None) -> Dict:
         """Random parameters from ``gen`` (a generator on this LM's
-        device; seed 0 when none is given). The reference draws from
-        JAX's PRNG, which torch cannot reproduce: parity runs pass the
-        reference's parameters in (``interop.params_from_numpy``)."""
+        device; seed 0 when none is given), in the reference's tree.
+        The reference draws from JAX's PRNG, which torch cannot
+        reproduce: parity runs pass the reference's parameters in
+        (``interop.params_from_numpy``)."""
         cfg = self.cfg
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -126,12 +151,34 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_dense(
                 gen, (cfg.d_model, cfg.vocab_size), dtype=dt)
-        blocks = {"attn": B.init_attention(gen, cfg, cfg.n_layers)}
-        if cfg.family == "moe":
-            blocks["moe"] = B.init_moe(gen, cfg, cfg.n_layers)
-        else:
-            blocks["mlp"] = B.init_mlp(gen, cfg, cfg.n_layers)
-        params["blocks"] = blocks
+        fam, n = cfg.family, cfg.n_layers
+        if fam in ("dense", "vlm"):
+            params["blocks"] = {"attn": B.init_attention(gen, cfg, n),
+                                "mlp": B.init_mlp(gen, cfg, n)}
+        elif fam == "moe":
+            params["blocks"] = {"attn": B.init_attention(gen, cfg, n),
+                                "moe": B.init_moe(gen, cfg, n)}
+        elif fam == "ssm":
+            params["blocks"] = {"mamba": B.init_mamba(gen, cfg, n)}
+        elif fam == "hybrid":
+            g, groups, tail = self._hybrid_shape()
+            params["blocks"] = {
+                "rec": B.init_rglru(gen, cfg, (groups, cfg.pattern_rec)),
+                "attn": B.init_attention(gen, cfg, groups),
+                "mlp": B.init_mlp(gen, cfg, (groups, g)),
+            }
+            if tail:
+                params["tail"] = {"rec": B.init_rglru(gen, cfg, tail),
+                                  "mlp": B.init_mlp(gen, cfg, tail)}
+        else:                                           # encdec
+            params["enc_blocks"] = {
+                "attn": B.init_attention(gen, cfg, cfg.encoder_layers),
+                "mlp": B.init_mlp(gen, cfg, cfg.encoder_layers)}
+            params["blocks"] = {"self": B.init_attention(gen, cfg, n),
+                                "cross": B.init_attention(gen, cfg, n),
+                                "mlp": B.init_mlp(gen, cfg, n)}
+            params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
+                                             device=self.device)
         return params
 
     def logits_fn(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +188,13 @@ class LM:
         return L.unembed(x, head, cfg.tie_embeddings)
 
     # --------------------------------------------------------------- decode
+    @property
+    def supports_rollback(self) -> bool:
+        """True when the decode state is KV rows and a length, so that a
+        speculative reject is a length reset; the recurrent families
+        fold every token into state that cannot be un-folded."""
+        return not self.cfg.recurrent
+
     def _kv_segment_layout(self) -> Optional[Tuple[Tuple[int, int, int], ...]]:
         """``cfg.kv_segments()`` when the config carries per-layer KV
         widths (checked as the reference checks them), else None: the
@@ -149,36 +203,43 @@ class LM:
         klb = cfg.compression.kv_layer_bits
         if klb is None:
             return None
+        if cfg.family not in ("dense", "vlm", "moe"):
+            raise Refused(
+                f"kv_layer_bits is only supported for dense/vlm/moe "
+                f"decode stacks, not family {cfg.family!r}")
         if len(klb) != cfg.n_kv_layers:
-            raise ValueError(f"kv_layer_bits has {len(klb)} entries for "
+            raise Refused(f"kv_layer_bits has {len(klb)} entries for "
                              f"{cfg.n_kv_layers} KV layers")
         if not cfg.compression.kv_bits:
-            raise ValueError(
+            raise Refused(
                 "kv_layer_bits requires kv_bits (set it to the max "
                 "per-layer width; None means a dense, unpacked cache)")
         if max(klb) != cfg.compression.kv_bits:
-            raise ValueError(f"kv_bits ({cfg.compression.kv_bits}) must "
+            raise Refused(f"kv_bits ({cfg.compression.kv_bits}) must "
                              f"equal max(kv_layer_bits) = {max(klb)}")
         return cfg.kv_segments()
 
-    def _kv_buffers(self, rows: Tuple[int, ...]):
-        """Zeroed K and V buffers of (layers, *rows, Hkv, W): int32 words
-        when the KV packs, else (..., Hkv, D) in the compute dtype. One
-        stacked dict, or a tuple of them per width segment."""
+    def _kv(self, layers: int, rows: Tuple[int, ...],
+            bits: Optional[int], names=("k", "v")) -> Dict:
+        """Zeroed buffers of (layers, *rows, Hkv, W) under ``names``:
+        int32 words when the KV packs at ``bits``, else (..., Hkv, D) in
+        the compute dtype."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
+        shape = (layers, *rows, cfg.n_kv_heads,
+                 bitpack.packed_group_words(hd, bits) if bits else hd)
+        dt = torch.int32 if bits else cfg.compute_dtype
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name in names}
 
-        def kv(layers: int, bits: Optional[int]) -> Dict:
-            shape = (layers, *rows, cfg.n_kv_heads,
-                     bitpack.packed_group_words(hd, bits) if bits else hd)
-            dt = torch.int32 if bits else cfg.compute_dtype
-            return {name: torch.zeros(shape, dtype=dt, device=self.device)
-                    for name in ("k", "v")}
-
+    def _kv_buffers(self, rows: Tuple[int, ...]):
+        """K and V buffers of (n_layers, *rows, Hkv, W): one stacked
+        dict, or a tuple of them per width segment."""
         segs = self._kv_segment_layout()
         if segs is None:
-            return kv(cfg.n_layers, cfg.compression.kv_bits)
-        return tuple(kv(hi - lo, bits) for lo, hi, bits in segs)
+            return self._kv(self.cfg.n_layers, rows,
+                            self.cfg.compression.kv_bits)
+        return tuple(self._kv(hi - lo, rows, bits) for lo, hi, bits in segs)
 
     def _kv_layers(self, kv) -> List[Tuple[Dict, int, Optional[int]]]:
         """Per layer: (its segment's {k, v} buffers, its index there, its
@@ -191,15 +252,59 @@ class LM:
         return [(kv, i, self.cfg.compression.kv_bits)
                 for i in range(self.cfg.n_layers)]
 
+    def _cross_state(self, batch_size: int) -> Dict:
+        """The encdec cross cache {ck, cv} of (L, B, encoder_seq, Hkv, W)
+        (dense in both layouts: it is prompt-scoped and fixed-size) and
+        ``clen``."""
+        cfg = self.cfg
+        return {"cross": self._kv(cfg.n_layers, (batch_size, cfg.encoder_seq),
+                                  cfg.compression.kv_bits, ("ck", "cv")),
+                "clen": torch.zeros((batch_size,), dtype=torch.int32,
+                                    device=self.device)}
+
+    def _recurrent(self, lead: Tuple[int, ...], width: int,
+                   last: Tuple[int, ...], name: str) -> Dict:
+        """Zeroed recurrent state: ``conv`` (*lead, d_conv-1, width) in
+        the compute dtype and ``name`` (*lead, *last) in f32."""
+        cfg = self.cfg
+        return {"conv": torch.zeros(lead + (cfg.d_conv - 1, width),
+                                    dtype=cfg.compute_dtype,
+                                    device=self.device),
+                name: torch.zeros(lead + last, dtype=torch.float32,
+                                  device=self.device)}
+
     def init_decode_state(self, batch_size: int, seq_len: int) -> Dict:
-        """Zeroed decode state: ``len`` (B,) int32 and the cache ``kv``
-        {k, v} of (L, B, S, Hkv, W), or a tuple of such dicts per width
-        segment."""
-        return {
-            "len": torch.zeros((batch_size,), dtype=torch.int32,
-                               device=self.device),
-            "kv": self._kv_buffers((batch_size, seq_len)),
-        }
+        """Zeroed decode state: ``len`` (B,) int32 and, by family, the
+        cache ``kv`` {k, v} of (L, B, S, Hkv, W) (or a tuple of such
+        dicts per width segment), encdec's cross cache and ``clen``,
+        ssm's ``conv`` and ``ssm``, hybrid's ring ``kv`` of (groups, B,
+        min(window, S), Hkv, W), ``rec`` {conv, h} of (groups,
+        pattern_rec, B, ...) and ``tail_rec``."""
+        cfg = self.cfg
+        self._kv_segment_layout()      # raises as the reference's does
+        b = batch_size
+        state: Dict[str, Any] = {
+            "len": torch.zeros((b,), dtype=torch.int32, device=self.device)}
+        fam = cfg.family
+        if fam in ("dense", "vlm", "moe"):
+            state["kv"] = self._kv_buffers((b, seq_len))
+        elif fam == "ssm":
+            state.update(self._recurrent((cfg.n_layers, b), cfg.d_inner,
+                                         (cfg.d_inner, cfg.ssm_state), "ssm"))
+        elif fam == "hybrid":
+            _, groups, tail = self._hybrid_shape()
+            lw = cfg.lru_width or cfg.d_model
+            win = min(cfg.attn_window or seq_len, seq_len)
+            state["kv"] = self._kv(groups, (b, win), cfg.compression.kv_bits)
+            state["rec"] = self._recurrent((groups, cfg.pattern_rec, b), lw,
+                                           (lw,), "h")
+            if tail:
+                state["tail_rec"] = self._recurrent((tail, b), lw, (lw,),
+                                                    "h")
+        else:                                           # encdec
+            state["kv"] = self._kv_buffers((b, seq_len))
+            state.update(self._cross_state(b))
+        return state
 
     def init_paged_decode_state(self, batch_size: int, seq_len: int,
                                 page_size: int, n_pages: int) -> Dict:
@@ -209,70 +314,153 @@ class LM:
         per width segment, over the same page axis); page 0 is the scrap
         page, the target of every unallocated table entry. ``page_size``
         must divide ``seq_len``, so the pages a table row names span the
-        dense cache's S rows."""
+        dense cache's S rows. encdec's cross cache stays dense. The
+        recurrent families have no rows to page and raise."""
+        if not self.supports_rollback:
+            raise Refused(
+                f"family {self.cfg.family!r} carries recurrent decode state; "
+                "paged KV needs a row-addressable cache (use dense mode)")
         if seq_len % page_size:
-            raise ValueError(
+            raise Refused(
                 f"kv_page_size {page_size} must divide max_seq_len "
                 f"{seq_len} so gathered pages keep the dense cache shape")
-        return {
+        state = {
             "len": torch.zeros((batch_size,), dtype=torch.int32,
                                device=self.device),
             "table": torch.zeros((batch_size, seq_len // page_size),
                                  dtype=torch.int32, device=self.device),
             "kv": self._kv_buffers((n_pages + 1, page_size)),
         }
+        if self.cfg.family == "encdec":
+            state.update(self._cross_state(batch_size))
+        return state
+
+    def _layer_views(self, params: Dict) -> List[Dict]:
+        """One view per layer, in the order the decode body runs them.
+        Hybrid: per group, its ``pattern_rec`` {rec, mlp} layers and one
+        {attn, mlp} layer (its nested stacks sliced twice), then the
+        tail's {rec, mlp} layers."""
+        cfg = self.cfg
+        if cfg.family != "hybrid":
+            return [layer_slice(params["blocks"], i)
+                    for i in range(cfg.n_layers)]
+        blocks = params["blocks"]
+        _, groups, tail = self._hybrid_shape()
+        views = []
+        for j in range(groups):
+            rec, mlp = (layer_slice(blocks["rec"], j),
+                        layer_slice(blocks["mlp"], j))
+            views += [{"rec": layer_slice(rec, i), "mlp": layer_slice(mlp, i)}
+                      for i in range(cfg.pattern_rec)]
+            views.append({"attn": layer_slice(blocks["attn"], j),
+                          "mlp": layer_slice(mlp, cfg.pattern_rec)})
+        views += [layer_slice(params["tail"], t) for t in range(tail)]
+        return views
 
     def layer_params(self, params: Dict) -> List[Dict]:
-        """Layer ``i``'s parameters for every layer, built once per
+        """Every layer's parameters (``_layer_views``), built once per
         parameter tree (the tree is read-only while it serves): stacked
         leaves sliced (a stacked (L, E, K, N) expert bank gives a 3-D
-        bank per layer), and packed norm scales — rank 1 once sliced,
-        with no kernel path — decoded here once instead of on every
-        step."""
+        bank per layer), and the packed leaves no kernel takes
+        (``blocks.PLAIN_LEAVES``: norm scales, conv, SSM and RG-LRU
+        diagonals, which the reference decodes on every step) decoded
+        here once, with the plain decode."""
         if self._views is None or self._views[0] is not params:
-            def decode_norms(_, leaf):
-                if is_packed(leaf) and len(leaf.logical_shape) == 1:
+            def decode_plain(path, leaf):
+                if is_packed(leaf) and path[-1] in B.PLAIN_LEAVES:
                     return L.unpack_maybe(leaf)
                 return leaf
-            views = [tree_map_with_path(decode_norms,
-                                        layer_slice(params["blocks"], i))
-                     for i in range(self.cfg.n_layers)]
+            views = [tree_map_with_path(decode_plain, view)
+                     for view in self._layer_views(params)]
             self._views = (params, views)
         return self._views[1]
+
+    def _self_attention(self, lp: Dict, x: torch.Tensor, state: Dict,
+                        layer_kv: Dict, bits: Optional[int]) -> torch.Tensor:
+        """One layer's causal self-attention over ``layer_kv`` (its {k, v}
+        cache or pools), appending this token's row at ``len``: dense,
+        through the table (fused) or by the gather route."""
+        cfg, lens, table = self.cfg, state["len"], state.get("table")
+        positions = lens[:, None]
+        if table is None:
+            x, _ = B.attention_decode(lp, x, cfg, dict(layer_kv, len=lens),
+                                      positions, kv_bits=bits)
+        elif self.paged_attn:
+            x, _ = B.attention_decode_paged(lp, x, cfg, layer_kv, table, lens,
+                                            positions, kv_bits=bits)
+        else:
+            st = {"k": gather_kv_pages(layer_kv["k"], table),
+                  "v": gather_kv_pages(layer_kv["v"], table), "len": lens}
+            x, st = B.attention_decode(lp, x, cfg, st, positions,
+                                       kv_bits=bits)
+            for name in ("k", "v"):
+                scatter_kv_row(layer_kv[name], st[name], table, lens)
+        return x
 
     def _hidden(self, params, state: Dict,
                 tokens: torch.Tensor) -> torch.Tensor:
         """The decode body: embed, every layer (appending this token's KV
-        row at ``len``), the final hidden state (B, 1, d). A paged state
-        takes the fused route or, without ``paged_attn``, the gather
-        route."""
+        row at ``len``, stepping the recurrent state in place), the final
+        hidden state (B, 1, d)."""
         cfg = self.cfg
+        fam = cfg.family
         x = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)
-        lens = state["len"]
-        positions = lens[:, None]
-        table = state.get("table")
-        for lp, (seg, j, bits) in zip(self.layer_params(params),
-                                      self._kv_layers(state["kv"])):
-            layer_kv = {"k": seg["k"][j], "v": seg["v"][j]}
-            if table is None:
-                x, _ = B.attention_decode(lp["attn"], x, cfg,
-                                          dict(layer_kv, len=lens), positions,
-                                          kv_bits=bits)
-            elif self.paged_attn:
-                x, _ = B.attention_decode_paged(lp["attn"], x, cfg, layer_kv,
-                                                table, lens, positions,
-                                                kv_bits=bits)
+        views = self.layer_params(params)
+        if fam in ("dense", "vlm", "moe", "encdec"):
+            for i, (lp, (seg, j, bits)) in enumerate(
+                    zip(views, self._kv_layers(state["kv"]))):
+                layer_kv = {"k": seg["k"][j], "v": seg["v"][j]}
+                x = self._self_attention(lp["self" if fam == "encdec"
+                                            else "attn"],
+                                         x, state, layer_kv, bits)
+                if fam == "encdec":
+                    cross = {"ck": state["cross"]["ck"][i],
+                             "cv": state["cross"]["cv"][i],
+                             "clen": state["clen"]}
+                    x, _ = B.attention_decode(lp["cross"], x, cfg, cross,
+                                              None, kv_bits=bits, cross=True)
+                if fam == "moe":
+                    x = B.moe_apply(lp["moe"], x, cfg)
+                else:
+                    x = B.mlp_apply(lp["mlp"], x, cfg)
+        elif fam == "ssm":
+            for i, lp in enumerate(views):
+                st = {"conv": state["conv"][i], "ssm": state["ssm"][i]}
+                x, new = B.mamba_decode(lp["mamba"], x, cfg, st)
+                for name in ("conv", "ssm"):        # in place
+                    st[name].copy_(new[name])
+        else:                                           # hybrid
+            x = self._hybrid_hidden(views, state, x)
+        return x
+
+    def _hybrid_hidden(self, views: List[Dict], state: Dict,
+                       x: torch.Tensor) -> torch.Tensor:
+        """The hybrid body over ``_layer_views``' order: RG-LRU layers
+        step ``rec`` (then ``tail_rec``) in place, each group's attention
+        layer appends to its ring at ``len % attn_window``."""
+        cfg = self.cfg
+        g, groups, _ = self._hybrid_shape()
+        lens, kv = state["len"], state["kv"]
+        for n, lp in enumerate(views):
+            j, i = divmod(n, g)
+            if "attn" in lp:
+                st = {"k": kv["k"][j], "v": kv["v"][j], "len": lens}
+                x, _ = B.attention_decode(lp["attn"], x, cfg, st,
+                                          lens[:, None],
+                                          kv_bits=cfg.compression.kv_bits,
+                                          window=cfg.attn_window)
             else:
-                st = {"k": gather_kv_pages(layer_kv["k"], table),
-                      "v": gather_kv_pages(layer_kv["v"], table), "len": lens}
-                x, st = B.attention_decode(lp["attn"], x, cfg, st, positions,
-                                           kv_bits=bits)
-                for name in ("k", "v"):
-                    scatter_kv_row(layer_kv[name], st[name], table, lens)
-            if cfg.family == "moe":
-                x = B.moe_apply(lp["moe"], x, cfg)
-            else:
-                x = B.mlp_apply(lp["mlp"], x, cfg)
+                if j < groups:
+                    st = {"conv": state["rec"]["conv"][j, i],
+                          "h": state["rec"]["h"][j, i]}
+                else:
+                    t = n - groups * g
+                    st = {"conv": state["tail_rec"]["conv"][t],
+                          "h": state["tail_rec"]["h"][t]}
+                x, new = B.rglru_decode(lp["rec"], x, cfg, st)
+                for name in ("conv", "h"):          # in place
+                    st[name].copy_(new[name])
+            x = B.mlp_apply(lp["mlp"], x, cfg)
         return x
 
     def decode_step(self, params, state: Dict,
@@ -310,6 +498,11 @@ class LM:
     def rollback_decode_state(self, state: Dict,
                               lengths: torch.Tensor) -> Dict:
         """Roll the cache back to ``lengths`` valid rows: rows past
-        ``len`` are dead, so this is a length reset."""
+        ``len`` are dead, so this is a length reset. The recurrent
+        families raise."""
+        if not self.supports_rollback:
+            raise Refused(
+                f"family {self.cfg.family!r} carries recurrent decode "
+                "state; KV-length rollback cannot undo folded tokens")
         return dict(state, len=torch.as_tensor(
             lengths, dtype=torch.int32, device=self.device))

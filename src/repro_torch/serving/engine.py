@@ -9,6 +9,8 @@ Port of the dense-KV and paged-KV modes of
   * chunked prefill: admitted prompts stream through ``lm.prefill_step``
     ``prefill_chunk`` tokens at a time (chunk widths bucketed to powers
     of two), leaving one token per request for the first decode tick;
+    the recurrent families (ssm, hybrid), whose state cannot take
+    padding, feed their prompts one token a tick instead;
   * one ``decode_step`` over the whole slot array per tick, then greedy
     argmax or a sampled token per slot (``greedy=False``), and one
     device-to-host read of the tokens per tick. The tick is the
@@ -66,7 +68,7 @@ from repro_torch.core.compress import repack, uniform_plan
 from repro_torch.core.occupancy import H100, decode_residency
 from repro_torch.core.tensor_store import tree_bytes, tree_to, weight_pass_bytes
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, Refused
 
 BOS_TOKEN = 0          # fed when a request has no prompt
 MAX_RESULTS = 65536    # finished outputs kept (FIFO)
@@ -197,8 +199,13 @@ class ServeEngine:
             min(self.residency.max_sequences, 64), 1)
         self.pool: Optional[KVPagePool] = None
         if self.paged:
+            if not self.lm.supports_rollback:
+                raise Refused(
+                    f"family {self.cfg.family!r} keeps recurrent O(1) "
+                    "decode state; there are no KV rows to page: serve it "
+                    "in dense KV mode (paged KV mode refused)")
             if self.max_seq_len % self.kv_page_size:
-                raise ValueError(
+                raise Refused(
                     f"kv_page_size {self.kv_page_size} must divide "
                     f"max_seq_len {self.max_seq_len} (paged KV mode)")
             self._max_pages = self.max_seq_len // self.kv_page_size
@@ -216,6 +223,8 @@ class ServeEngine:
         else:
             self.state = self.lm.init_decode_state(self.n_slots,
                                                    self.max_seq_len)
+        if self.cfg.family == "encdec":
+            self.state["clen"].fill_(self.cfg.encoder_seq)
         self._free: Deque[int] = collections.deque(range(self.n_slots))
         self._active: Dict[int, Request] = {}
         self._results: Dict[int, List[int]] = {}
@@ -259,14 +268,15 @@ class ServeEngine:
     def submit(self, prompt: List[int], max_new_tokens: int = 16) -> int:
         # prompt + all-but-the-last generated token (+ the speculation
         # headroom) must fit the cache; past max_seq_len the append would
-        # clamp onto the last row
+        # clamp onto the last row. Recurrent state is O(1) in length and
+        # the hybrid's windowed cache wraps, so only row caches overflow
         need = (max(len(prompt), 1) + max_new_tokens - 1
                 + self._seq_headroom)
-        if need > self.max_seq_len:
+        if self.lm.supports_rollback and need > self.max_seq_len:
             mode = ("paged KV mode: page table holds "
                     f"{self._max_pages} pages of {self.kv_page_size}"
                     if self.paged else "dense KV mode")
-            raise ValueError(
+            raise Refused(
                 f"request needs {need} KV rows (prompt {len(prompt)} + "
                 f"{max_new_tokens} new + headroom {self._seq_headroom}) "
                 f"but max_seq_len is {self.max_seq_len} [{mode}]")
@@ -306,7 +316,9 @@ class ServeEngine:
         self.state["len"][slot] = n
 
     def _reset_slot(self, slot: int) -> None:
-        """Recycle a slot: zero its cache length (rows past len are dead)."""
+        """Recycle a slot: zero its cache length (rows past len are dead).
+        As in the reference, a recurrent family's conv/ssm/h state is not
+        cleared: the next request starts from its predecessor's."""
         self._set_slot_len(slot, 0)
 
     def _admit(self) -> None:
@@ -334,7 +346,10 @@ class ServeEngine:
             if self.paged:
                 pending = self._attach_pages(req, pending)
             self._pending_prefill[req.rid] = pending
-        if admitted:
+        # chunked ingestion needs padding rows to be dead rows; the
+        # recurrent families fold every token they are fed, so their
+        # prompts go through the ticks one token at a time (_generate)
+        if admitted and self.lm.supports_rollback:
             self._ingest_prompts()
 
     # -- paged-KV page management ---------------------------------------------

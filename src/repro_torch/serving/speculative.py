@@ -37,7 +37,7 @@ from repro_torch import obs
 from repro_torch.core.compress import derive_plan, repacked_copy, uniform_plan
 from repro_torch.core.formats import FLOAT_LADDER, ladder_snap
 from repro_torch.core.tensor_store import tree_bytes, weight_pass_bytes
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, Refused
 from repro_torch.serving.engine import (ServeEngine, _pool_copy_page,
                                         fold_in, sample_per_slot)
 
@@ -131,13 +131,18 @@ class SpeculativeEngine(ServeEngine):
     def __post_init__(self):
         super().__post_init__()
         if self.k < 1:
-            raise ValueError(f"k must be >= 1, got {self.k}")
+            raise Refused(f"k must be >= 1, got {self.k}")
+        if not self.lm.supports_rollback:
+            mode = "paged KV mode" if self.paged else "dense KV mode"
+            raise Refused(
+                f"family {self.cfg.family!r} cannot roll its decode state "
+                f"back; speculation needs KV-length rollback [{mode}]")
         wbits = self.cfg.resolved_weight_bits
         # snapped to the ladder before it is checked or reported: the
         # packed store only has Table 3 rungs
         dbits = ladder_snap(self.draft_bits or resolve_draft_bits(self.cfg))
         if dbits >= wbits:
-            raise ValueError(
+            raise Refused(
                 f"draft width {dbits} (ladder-snapped) must be narrower "
                 f"than the target's {wbits}")
         self.draft_bits = dbits
@@ -157,7 +162,7 @@ class SpeculativeEngine(ServeEngine):
             self.draft_kv_bits = ladder_snap(self.draft_kv_bits)
         tgt_kv = self.cfg.compression.kv_bits
         if self.draft_kv_bits and tgt_kv and self.draft_kv_bits > tgt_kv:
-            raise ValueError(
+            raise Refused(
                 f"draft KV width {self.draft_kv_bits} (ladder-snapped) "
                 f"must not be wider than the target's {tgt_kv}")
         draft_klb = None
@@ -187,6 +192,8 @@ class SpeculativeEngine(ServeEngine):
         else:
             self.draft_state = self.draft_lm.init_decode_state(
                 self.n_slots, self.max_seq_len)
+        if self.cfg.family == "encdec":
+            self.draft_state["clen"].fill_(self.cfg.encoder_seq)
         self._one_row = torch.ones((self.n_slots,), dtype=torch.int32,
                                    device=self.device)
         self.spec_ticks = 0

@@ -761,9 +761,10 @@ def test_cuda_decode_step_matches_cpu(cuda):
         lc, st_c = lm_cpu.decode_step(params_cpu, st_c, toks)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     after = ops.launch_counts()
-    unused = ("packed_matmul_batched", "paged_attention", "unpack",
-              "convert", "truncate")
+    unused = ("packed_matmul_transposed", "packed_matmul_batched",
+              "paged_attention", "unpack", "convert", "truncate")
     assert all(after[k] > before[k] for k in before if k not in unused)
-    # a dense model has no expert banks, a dense cache no page table, and
-    # no model path calls unpack, convert or truncate
+    # qwen3's head is untied (no transposed product), a dense model has
+    # no expert banks, a dense cache no page table, and no model path
+    # calls unpack, convert or truncate
     assert all(after[k] == before[k] for k in unused)

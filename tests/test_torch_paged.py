@@ -442,9 +442,9 @@ def test_submit_error_names_mode():
 
 
 def test_paged_refuses_what_is_not_ported():
-    """A recurrent family has no KV rows to page; the port does not
-    serve it at all yet (the reference refuses paged mode for it)."""
-    with pytest.raises(NotImplementedError, match="A12"):
+    """A recurrent family has no KV rows to page: the port refuses paged
+    mode for it with the reference's ValueError."""
+    with pytest.raises(ValueError, match="paged KV mode refused"):
         ServeEngine(get_config("falcon_mamba_7b").reduced(), max_slots=2,
                     paged=True, device="cpu")
 

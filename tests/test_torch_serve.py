@@ -184,13 +184,23 @@ def test_unported_modes_raise():
     eng = ServeEngine(cfg, max_slots=1, device="cpu", paged=True)
     assert eng.pool is not None and eng.pool.n_pages == eng.kv_pool_pages
     assert tuple(eng.state["table"].shape) == (1, eng.max_seq_len // 16)
-    # the family gate lets dense and moe through, and nothing else yet
+    # every family serves (tests/test_torch_families.py and
+    # test_torch_recurrent.py hold them to the reference): each drains a
+    # request, and the recurrent ones refuse paged KV as the reference
+    # does
     families = {get_config(a).family: a for a in ARCHS}
     assert {"ssm", "hybrid", "encdec", "vlm"} <= set(families)
     for fam in ("ssm", "hybrid", "encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            ServeEngine(get_config(families[fam]).reduced(), max_slots=1,
-                        device="cpu")
+        cfg = get_config(families[fam]).reduced()
+        eng = ServeEngine(cfg, max_slots=1, max_seq_len=16, device="cpu")
+        rid = eng.submit([1, 2, 3], max_new_tokens=2)
+        eng.run_until_drained()
+        assert len(eng.result(rid)) == 2
+        assert eng.lm.supports_rollback == (fam not in ("ssm", "hybrid"))
+        if not eng.lm.supports_rollback:
+            with pytest.raises(ValueError, match="paged KV mode refused"):
+                ServeEngine(cfg, max_slots=1, max_seq_len=16, device="cpu",
+                            paged=True)
 
 
 def test_kv_append_clamps_like_the_reference():
