@@ -11,9 +11,10 @@ Phases; any failure raises and the script exits non-zero:
    over all kernels and for ``kvd_partial`` (kv_decode and
    paged_attention's body) alone, with the dynamic shared memory a
    block of it takes at the phase-2 shapes; the same for
-   ``pmm_kernel`` and ``pmm_t_kernel`` (packed_matmul and
-   packed_matmul_batched's two orientations), with the normal
-   orientation's dynamic shared memory per width and x dtype.
+   ``pmm_kernel`` and ``pmm_t_mma_kernel`` (packed_matmul and
+   packed_matmul_batched's two orientations), with each orientation's
+   dynamic shared memory per width and x dtype (the transposed one's at
+   slices of 2,048 columns, the tied heads').
 2. each kernel against its plain PyTorch version on the card, at the
    shapes full-width serving gives it (qwen3-8b for the dense-path
    kernels and paged_attention, deepseek-moe-16b's expert banks for
@@ -56,7 +57,8 @@ Phases; any failure raises and the script exits non-zero:
    bf16 activations, AF16 weights and KV, caches of 64 rows): every
    packed product of the body (``tick_products``; the tied heads of
    paligemma and recurrentgemma in the transposed orientation, whisper's
-   untied head, mamba's four projections), the KV append and kv_decode
+   untied head, mamba's four projections; paligemma's head also at AF12,
+   the AF12 draft's, which no plain tick runs), the KV append and kv_decode
    of each self-attention layer (recurrentgemma over its ring), whisper's
    cross attention over its 1,500 rows, the embedding gather, and
    paligemma's paged_attention (head_dim 256, 8 query heads a KV head)
@@ -1326,11 +1328,17 @@ def check_family(torch, F, ops, ref, gen, cfg, seq):
         out["paged_attention"] = check_paged_attention(torch, F, ops, ref,
                                                        gen, cfg)
     head = per["packed_matmul"][-1]
+    keys = ("K", "N", "max_err", "tol", "kernel_ms", "host_issue_ms",
+            "plain_ms", "bound_ms", "library_ms")
     if head["transpose"]:
-        out["packed_matmul"]["transposed_head"] = {
-            k: head[k] for k in ("K", "N", "max_err", "tol", "kernel_ms",
-                                 "host_issue_ms", "plain_ms", "bound_ms",
-                                 "library_ms")}
+        out["packed_matmul"]["transposed_head"] = {k: head[k] for k in keys}
+    if head["transpose"] and cfg.family == "vlm":   # the AF12 draft's head
+        af12 = matmul_case(torch, ops, ref, gen, cfg.name, head["K"],
+                           head["N"], 0, True, torch.bfloat16, 12)
+        out["packed_matmul"]["transposed_head"]["af12"] = {
+            k: af12[k] for k in keys}
+        out["packed_matmul"]["max_abs_err"] = max(
+            out["packed_matmul"]["max_abs_err"], af12["max_err"])
     return out
 
 
@@ -1946,11 +1954,14 @@ def build_summary(log_text: str, kernel: str = "") -> str:
 
 
 def pmm_smem(build):
-    """Dynamic shared memory a block of packed_matmul's normal
-    orientation takes, per width and x dtype."""
+    """Dynamic shared memory a block of packed_matmul takes, per width and
+    x dtype: the normal orientation's, and the transposed one's at slices
+    of 2,048 columns (the tied heads')."""
     lib = build.library()
-    return {f"AF{b} {dt}": lib.rt_pmm_smem(b, int(dt == "bf16"))
-            for b in WIDTHS for dt in ("bf16", "f32")}
+    return {f"{o}AF{b} {dt}": (lib.rt_pmm_t_smem(b, int(dt == "bf16"), 2048)
+                               if o else lib.rt_pmm_smem(b, int(dt == "bf16")))
+            for o in ("", "transposed ") for b in WIDTHS
+            for dt in ("bf16", "f32")}
 
 
 def attend_smem(build, cases):
@@ -2017,8 +2028,8 @@ def main() -> int:
             ("whisper_small self", whisper, MOE_MAX_SEQ),
             ("whisper_small cross", whisper, whisper.encoder_seq)))))
     log("pmm_kernel (packed_matmul's normal orientation): "
-        + build_summary(build_log, "pmm_kernel") + "; pmm_t_kernel "
-        "(transposed): " + build_summary(build_log, "pmm_t_kernel")
+        + build_summary(build_log, "pmm_kernel") + "; pmm_t_mma_kernel "
+        "(transposed): " + build_summary(build_log, "pmm_t_mma_kernel")
         + "; dynamic shared " + json.dumps(pmm_smem(build)))
 
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -45,6 +45,7 @@ SIGNATURES: Dict[str, List] = {
     "rt_packed_matmul_batched": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P],
     "rt_pmm_smem": [_I, _I],
+    "rt_pmm_t_smem": [_I, _I, _I],
     "rt_kv_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P],
     "rt_paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -52,11 +52,35 @@
 // in kernels/packed_matmul.py cuts K until the grid has a block for
 // every SM, at most 8 ways). Ragged M, N and K are masked in the kernel.
 //
-// Transposed orientation (W (N, K) packed along K, the tied heads; on no
-// serving path yet): a warp decodes one weight row's group of 32 codes
-// per step into a shared f32 tile, read directly from device memory, and
-// a thread runs 8 FMAs per code for its column; it shares the cluster
-// epilogue.
+// Transposed orientation (W (N, K) packed along K: the tied heads of
+// paligemma-3b and recurrentgemma-9b on every decode call, and the expert
+// banks' dx orientation). The same byte bound, and the same answer to it,
+// turned to codes that run along K:
+// - Tensor cores with W as the mma's A operand: 16 weight rows (output
+//   columns) x 8 k against B = x^T (8 k x 8 rows of x). Inside each group
+//   of 32 codes the k order is permuted so that lane (g, t) decodes codes
+//   [8t, 8t + 8) of rows g and g + 8 (one decode8 unit each, one 16-byte
+//   shared load at AF16) and uses them over the group's 4 k-steps: at
+//   step q the mma's k column t is code 8t + 2q, column t + 4 code
+//   8t + 2q + 1. Its B elements are x[g][8t .. 8t + 8), one 16-byte
+//   shared load of bf16 x per group. decode8 and the store's kScale as in
+//   the normal orientation, so bf16 x at AF8-AF16 is exact in TF32.
+// - f32 x, and AF20 to AF32, take f32 FMAs on the CUDA cores from the
+//   same staged data: a lane sums its codes' k for its two rows and all
+//   BM rows of x, then the 4 lanes of a row meet by shuffles.
+// - A ring of cp.async copies per warp: a warp streams its own 16 weight
+//   rows along K, G groups of 32 codes a stage (2 KB at AF8 and AF16),
+//   STAGES_T stages deep, no block barrier in the loop; 8 warps x 3
+//   stages in flight, 48 KB of weights per block at AF16, 2 blocks an SM.
+//   A stage is stored group-major (a group's 16 rows B words apart), so
+//   the A loads hit 32 distinct banks.
+// - x's K slice (BM rows) is copied into shared memory once per block
+//   before the weight loop and read by every warp; its rows are padded to
+//   64 bytes past a multiple of 128 so the B loads are conflict free. The
+//   slice holds at most X_SLICE_BYTES; grid_plan splits K (one cluster,
+//   the normal orientation's epilogue) so that it fits, and a block whose
+//   slice is longer still (K past 8 slices) walks it in passes.
+// Grid: N / BN_T tiles of W's rows, M / BM tiles of x's rows, E * splits.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -79,8 +103,10 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int RS = 16;          // rows a warp takes per ring stage: two mma k-steps
 constexpr int STAGES = 4;       // ring depth per warp
 constexpr int MAX_SPLITS = 8;   // K slices of one tile: the blocks of a cluster
-constexpr int BN_T = 256;       // transposed orientation: columns (= threads) per block
-constexpr int BK_T = 32;        // and its K tile
+constexpr int RW_T = 16;        // transposed orientation: weight rows a warp streams (an mma tile)
+constexpr int BN_T = WARPS * RW_T;  // and a block: its output columns
+constexpr int STAGES_T = 4;     // its ring depth per warp
+constexpr int X_SLICE_BYTES = 32 * 1024;  // its x slice's budget: BM rows of k_chunk elements
 
 // The tensor-core path: bf16 x and a width whose values TF32 holds.
 template <int B, typename XT>
@@ -170,14 +196,22 @@ __device__ __forceinline__ void mma_tf32(float* d, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// U words from shared memory, in 16- or 8-byte loads where U allows
+// (p is then aligned so).
 template <int U>
 __device__ __forceinline__ void load_unit(const uint32_t* p, uint32_t (&u)[U]) {
-  if constexpr (U == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
-  } else if constexpr (U == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    u[0] = v.x, u[1] = v.y;
+  if constexpr (U % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < U; i += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+      u[i] = v.x, u[i + 1] = v.y, u[i + 2] = v.z, u[i + 3] = v.w;
+    }
+  } else if constexpr (U % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < U; i += 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+      u[i] = v.x, u[i + 1] = v.y;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < U; ++i) u[i] = p[i];
@@ -360,15 +394,136 @@ pmm_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb, XT* __res
   finish<XT, BN, THREADS>(sums, out, M, N, m0, n0, splits, MMA ? kScale<B> : 1.f);
 }
 
-// Transposed orientation: W (E, N, wwords) int32 words, packed along K;
-// x (E, M, K), out (E, M, N).
+// The transposed orientation's ring: per warp STAGES_T stages of G groups
+// of 32 codes of its RW_T weight rows, group-major (group j's rows B words
+// apart), then the block's x slice. G makes a stage 2 KB at AF8 and AF16.
+template <int B>
+struct TRing {
+  static constexpr int G = B <= 8 ? 4 : (B <= 16 ? 2 : 1);
+  static constexpr int GROUP = RW_T * B;       // words of one group's rows
+  static constexpr int STAGE = G * GROUP;
+  static constexpr int WARP = STAGES_T * STAGE;
+  static constexpr int BYTES = 4 * WARPS * WARP;
+  static constexpr int VPG = B / 4;            // 16-byte vectors of a row's group
+  static constexpr int VECS = RW_T * G * VPG;  // of a stage
+  static_assert(BYTES >= 4 * BM * BN_T, "the block's sums overlay the rings");
+};
+
+// Columns of x the slice buffer holds, and its row stride in elements:
+// 64 bytes past a multiple of 128, so that rows g and g + 1 of a B load
+// fall on distinct banks.
+template <typename XT>
+constexpr int kXCap = X_SLICE_BYTES / (BM * (int)sizeof(XT));
+
+template <typename XT>
+__host__ __device__ constexpr int x_stride(int cols) {
+  return (cols * (int)sizeof(XT) / 128 * 128 + 64) / (int)sizeof(XT);
+}
+
 template <int B, typename XT>
-__global__ void __launch_bounds__(BN_T)
-pmm_t_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb,
-             XT* __restrict__ outb, int M, int N, int K, int wwords, int k_chunk, int splits) {
-  __shared__ float Ws[BK_T][BN_T + 1];
-  __shared__ float Xs[BM][BK_T];
-  const int tid = threadIdx.x;
+int t_smem_bytes(int k_chunk) {
+  const int cols = k_chunk < kXCap<XT> ? k_chunk : kXCap<XT>;
+  return TRing<B>::BYTES + BM * x_stride<XT>(cols) * (int)sizeof(XT);
+}
+
+// Issues one stage of a warp's ring: groups [g0, g0 + G) of weight rows
+// [n0, n0 + RW_T), zeros for rows past N and groups past gend.
+template <int B>
+__device__ __forceinline__ void load_t_stage(uint32_t* st, const uint32_t* w, int n0, int N,
+                                             int g0, int gend, int wwords, int lane) {
+  using R = TRing<B>;
+#pragma unroll
+  for (int i = 0; i < (R::VECS + 31) / 32; ++i) {
+    const int c = lane + 32 * i;
+    if (R::VECS % 32 != 0 && c >= R::VECS) break;
+    const int r = c / (R::G * R::VPG), j = c / R::VPG % R::G, v = c % R::VPG;
+    const int n = n0 + r, grp = g0 + j;
+    const bool ok = n < N && grp < gend;
+    cp_async16(st + j * R::GROUP + r * B + 4 * v,
+               ok ? w + (long long)n * wwords + grp * B + 4 * v : w, ok);
+  }
+}
+
+// Copies x's rows [m0, m0 + BM), columns [p0, p0 + cols) into xs (row
+// stride xse), zeros past M and pe; the whole block takes part. Rows that
+// are not 16-byte aligned are copied element by element, synchronously.
+template <typename XT>
+__device__ __forceinline__ void load_x_slice(XT* xs, int xse, const XT* x, int M, int K, int m0,
+                                             int p0, int pe, int cols, int x_vec) {
+  if (x_vec) {
+    constexpr int EV = 16 / (int)sizeof(XT);
+    const int vpr = cols / EV;
+    for (int c = threadIdx.x; c < BM * vpr; c += THREADS) {
+      const int mm = c / vpr, kk = c % vpr * EV;
+      const bool ok = m0 + mm < M && p0 + kk < pe;
+      cp_async16(xs + mm * xse + kk, ok ? x + (long long)(m0 + mm) * K + p0 + kk : x, ok);
+    }
+  } else {
+    for (int c = threadIdx.x; c < BM * cols; c += THREADS) {
+      const int mm = c / cols, kk = c % cols;
+      xs[mm * xse + kk] = (m0 + mm < M && p0 + kk < pe) ? x[(long long)(m0 + mm) * K + p0 + kk]
+                                                         : rt::from_f32<XT>(0.f);
+    }
+  }
+}
+
+// 8 elements of x from shared memory (16-byte aligned) as floats.
+__device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ void load_x8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// decode8's floats (over kScale<B>) for every code of every width, inf
+// and NaN included.
+template <int B>
+__device__ __forceinline__ void decode8_any(const uint32_t (&u)[B / 4], float (&f)[8]) {
+  if constexpr (B > 16) {
+    decode8_exact<B>(u, f);
+  } else {
+    const bool bad = decode8<B>(u, f);
+    if constexpr (B != 16) {
+      if (__any_sync(0xFFFFFFFFu, bad)) {
+        float e[8];
+        decode8_exact<B>(u, e);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = bad ? e[i] : f[i];
+      }
+    }
+  }
+}
+
+// Transposed orientation: W (E, N, wwords) int32 words, packed along K;
+// x (E, M, K), out (E, M, N). W is 16-byte aligned and wwords a multiple
+// of 4. A block takes BN_T weight rows (warp w rows [16w, 16w + 16)) and
+// BM rows of x over its K slice, in passes of at most xk columns (one
+// pass unless K is past 8 full slices).
+template <int B, typename XT>
+__global__ void __launch_bounds__(THREADS, 2)
+pmm_t_mma_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb,
+                 XT* __restrict__ outb, int M, int N, int K, int wwords, int k_chunk,
+                 int splits, int xk, int x_vec) {
+  using R = TRing<B>;
+  constexpr bool MMA = kMma<B, XT>;
+  constexpr int U = B / 4;
+  constexpr int ACC = MMA ? 4 : 2 * BM;   // mma: c0..c3; FMA: rows g, g + 8 by x row
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t* ring = smem + warp * R::WARP;
+  XT* xs = reinterpret_cast<XT*>(smem + WARPS * R::WARP);
+  const int xse = x_stride<XT>(xk);
   const int n0 = blockIdx.x * BN_T, m0 = blockIdx.y * BM;
   const int split = blockIdx.z % splits;
   const long long e = blockIdx.z / splits;
@@ -377,40 +532,104 @@ pmm_t_kernel(const XT* __restrict__ xb, const uint32_t* __restrict__ wb,
   XT* out = outb + e * M * N;
   const int kb = split * k_chunk;
   const int ke = min(K, kb + k_chunk);
-  const int wp = tid >> 5, lane = tid & 31;
-  float acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.f;
 
-  for (int k0 = kb; k0 < ke; k0 += BK_T) {
-    {
-      const int mm = tid / BK_T, kk = tid % BK_T;
-      const int m = m0 + mm, k = k0 + kk;
-      Xs[mm][kk] = (m < M && k < ke) ? rt::to_f32(x[(long long)m * K + k]) : 0.f;
-    }
-    const int goff = (k0 >> 5) * B;
-#pragma unroll 4
-    for (int nn = wp; nn < BN_T; nn += BN_T / 32) {
-      const int n = n0 + nn;
-      float v = 0.f;
-      if (n < N && k0 + lane < ke)
-        v = rt::decode_float<B>(rt::extract_code<B>(w + (long long)n * wwords + goff, lane));
-      Ws[lane][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK_T; ++kk) {
-      const float wval = Ws[kk][tid];
+  float acc[ACC];
 #pragma unroll
-      for (int i = 0; i < BM; ++i) acc[i] = fmaf(Xs[i][kk], wval, acc[i]);
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  for (int p0 = kb; p0 < ke; p0 += xk) {
+    const int pe = min(ke, p0 + xk);
+    const int gb = p0 / 32, gend = (pe + 31) / 32;
+    const int steps = (gend - gb + R::G - 1) / R::G;
+    if (p0 > kb) __syncthreads();      // every warp is done with the last pass's x
+    load_x_slice<XT>(xs, xse, x, M, K, m0, p0, pe, (gend - gb) * 32, x_vec);
+    cp_commit();
+    // stage i of this warp: groups [gb + i G, gb + (i + 1) G) into slot i % STAGES_T
+    auto issue = [&](int i) {
+      load_t_stage<B>(ring + (i % STAGES_T) * R::STAGE, w, n0 + warp * RW_T, N, gb + i * R::G,
+                      gend, wwords, lane);
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES_T - 1; ++s) {
+      if (s < steps) issue(s);
+      cp_commit();
     }
-    __syncthreads();
+    cp_wait<STAGES_T - 1>();           // this thread's x copies have landed
+    __syncthreads();                   // and every thread's
+    for (int i = 0; i < steps; ++i) {
+      cp_wait<STAGES_T - 2>();         // stage i has landed
+      __syncwarp();                    // and every lane is done with stage i - 1
+      if (i + STAGES_T - 1 < steps) issue(i + STAGES_T - 1);
+      cp_commit();
+      const uint32_t* st = ring + (i % STAGES_T) * R::STAGE;
+#pragma unroll
+      for (int j = 0; j < R::G; ++j) {
+        const int k0 = (gb + i * R::G + j) * 32;   // the group's first k
+        if (k0 >= pe) break;
+        uint32_t u0[U], u1[U];
+        load_unit<U>(st + j * R::GROUP + g * B + U * t, u0);
+        load_unit<U>(st + j * R::GROUP + (g + 8) * B + U * t, u1);
+        float f0[8], f1[8];
+        decode8_any<B>(u0, f0);
+        decode8_any<B>(u1, f1);
+        if (k0 + 32 > pe) {            // codes past the slice's end are not W's
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (k0 + 8 * t + c >= pe) f0[c] = f1[c] = 0.f;
+        }
+        const XT* xg = xs + (k0 - p0) + 8 * t;
+        if constexpr (MMA) {
+          // x[g][8t + 2q] and x[g][8t + 2q + 1] in word q, bf16
+          const uint4 q4 = *reinterpret_cast<const uint4*>(xg + g * xse);
+          const uint32_t xw[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            mma_tf32(acc, __float_as_uint(f0[2 * q]), __float_as_uint(f1[2 * q]),
+                     __float_as_uint(f0[2 * q + 1]), __float_as_uint(f1[2 * q + 1]), xw[q] << 16,
+                     xw[q] & 0xFFFF0000u);
+        } else {
+#pragma unroll
+          for (int m = 0; m < BM; ++m) {
+            float xv[8];
+            load_x8(xg + m * xse, xv);
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              acc[m] = fmaf(xv[c], f0[c] * kScale<B>, acc[m]);
+              acc[BM + m] = fmaf(xv[c], f1[c] * kScale<B>, acc[BM + m]);
+            }
+          }
+        }
+      }
+    }
+    cp_wait<0>();
+    __syncwarp();
   }
-  float* sums = &Ws[0][0];            // (BM, BN_T), over the tile
-#pragma unroll
-  for (int i = 0; i < BM; ++i) sums[i * BN_T + tid] = acc[i];
+
+  // the block's sums (BM, BN_T) over the rings: mma row g (g + 8) is the
+  // warp's weight row g (g + 8), its column 2t (2t + 1) a row of x
   __syncthreads();
-  finish<XT, BN_T, BN_T>(sums, out, M, N, m0, n0, splits, 1.f);
+  float* sums = reinterpret_cast<float*>(smem);
+  const int r = warp * RW_T + g;
+  if constexpr (MMA) {
+    sums[2 * t * BN_T + r] = acc[0];
+    sums[(2 * t + 1) * BN_T + r] = acc[1];
+    sums[2 * t * BN_T + r + 8] = acc[2];
+    sums[(2 * t + 1) * BN_T + r + 8] = acc[3];
+  } else {
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      acc[i] += __shfl_xor_sync(0xFFFFFFFFu, acc[i], 1);
+      acc[i] += __shfl_xor_sync(0xFFFFFFFFu, acc[i], 2);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        sums[m * BN_T + r] = acc[m];
+        sums[m * BN_T + r + 8] = acc[BM + m];
+      }
+    }
+  }
+  __syncthreads();
+  finish<XT, BN_T, THREADS>(sums, out, M, N, m0, n0, splits, MMA ? kScale<B> : 1.f);
 }
 
 // Launches a kernel whose blocks along z form clusters of ``splits``.
@@ -432,26 +651,36 @@ int launch_cluster(void (*kernel)(P...), dim3 grid, int threads, int smem, int s
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// Lets ``kernel`` take ``smem`` bytes of dynamic shared memory.
+template <typename F>
+cudaError_t allow_smem(F* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 template <int B, bool TRANS, typename XT>
 int launch(const void* x, const void* w, void* out, int E, int M, int N, int K, int wwords,
            int splits, int k_chunk, cudaStream_t s) {
-  const unsigned rows = (unsigned)((M + BM - 1) / BM), z = (unsigned)(E * splits);
-  if (TRANS) {
-    return launch_cluster(pmm_t_kernel<B, XT>, dim3((N + BN_T - 1) / BN_T, rows, z), BN_T, 0,
-                          splits, s, (const XT*)x, (const uint32_t*)w, (XT*)out, M, N, K,
-                          wwords, k_chunk, splits);
-  }
+  // both bodies stream W with 16-byte copies
   if ((uintptr_t)w % 16 || wwords % 4) return (int)cudaErrorInvalidValue;
+  const unsigned rows = (unsigned)((M + BM - 1) / BM), z = (unsigned)(E * splits);
   const int x_vec = (uintptr_t)x % 16 == 0 && (long long)K * (long long)sizeof(XT) % 16 == 0;
-  constexpr int smem = Ring<B, XT>::BYTES;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pmm_kernel<B, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if constexpr (TRANS) {
+    const int smem = t_smem_bytes<B, XT>(k_chunk);
+    const cudaError_t e = allow_smem(pmm_t_mma_kernel<B, XT>, smem);
     if (e != cudaSuccess) return (int)e;
+    const int xk = k_chunk < kXCap<XT> ? k_chunk : kXCap<XT>;
+    return launch_cluster(pmm_t_mma_kernel<B, XT>, dim3((N + BN_T - 1) / BN_T, rows, z),
+                          THREADS, smem, splits, s, (const XT*)x, (const uint32_t*)w, (XT*)out,
+                          M, N, K, wwords, k_chunk, splits, xk, x_vec);
+  } else {
+    constexpr int smem = Ring<B, XT>::BYTES;
+    const cudaError_t e = allow_smem(pmm_kernel<B, XT>, smem);
+    if (e != cudaSuccess) return (int)e;
+    return launch_cluster(pmm_kernel<B, XT>, dim3((N + BN - 1) / BN, rows, z), THREADS, smem,
+                          splits, s, (const XT*)x, (const uint32_t*)w, (XT*)out, M, N, K,
+                          wwords, k_chunk, splits, x_vec);
   }
-  return launch_cluster(pmm_kernel<B, XT>, dim3((N + BN - 1) / BN, rows, z), THREADS, smem,
-                        splits, s, (const XT*)x, (const uint32_t*)w, (XT*)out, M, N, K, wwords,
-                        k_chunk, splits, x_vec);
 }
 
 template <typename XT>
@@ -489,12 +718,17 @@ int ring_bytes(int x_bf16) {
   return x_bf16 ? Ring<B, __nv_bfloat16>::BYTES : Ring<B, float>::BYTES;
 }
 
+template <int B>
+int t_ring_bytes(int x_bf16, int k_chunk) {
+  return x_bf16 ? t_smem_bytes<B, __nv_bfloat16>(k_chunk) : t_smem_bytes<B, float>(k_chunk);
+}
+
 }  // namespace
 
 // x (M, K) f32 or bf16; w int32 words, (K, wwords) or (N, wwords) when
-// transposed, 16-byte aligned with wwords a multiple of 4 in the normal
-// orientation; out (M, N) in x's dtype; K cut into splits (1..8) slices
-// of k_chunk rows, a multiple of 32. One launch.
+// transposed, 16-byte aligned with wwords a multiple of 4; out (M, N)
+// in x's dtype; K cut into splits (1..8) slices of k_chunk rows, a
+// multiple of 32. One launch.
 extern "C" int rt_packed_matmul(const void* x, int x_bf16, const void* w, void* out, int M,
                                 int N, int K, int wwords, int bits, int transpose, int splits,
                                 int k_chunk, void* stream) {
@@ -520,6 +754,21 @@ extern "C" int rt_pmm_smem(int bits, int x_bf16) {
     case 24: return ring_bytes<24>(x_bf16);
     case 28: return ring_bytes<28>(x_bf16);
     case 32: return ring_bytes<32>(x_bf16);
+    default: return -1;
+  }
+}
+
+// The same for the transposed orientation, whose x slice buffer holds
+// min(k_chunk, its cap) columns.
+extern "C" int rt_pmm_t_smem(int bits, int x_bf16, int k_chunk) {
+  switch (bits) {
+    case 8: return t_ring_bytes<8>(x_bf16, k_chunk);
+    case 12: return t_ring_bytes<12>(x_bf16, k_chunk);
+    case 16: return t_ring_bytes<16>(x_bf16, k_chunk);
+    case 20: return t_ring_bytes<20>(x_bf16, k_chunk);
+    case 24: return t_ring_bytes<24>(x_bf16, k_chunk);
+    case 28: return t_ring_bytes<28>(x_bf16, k_chunk);
+    case 32: return t_ring_bytes<32>(x_bf16, k_chunk);
     default: return -1;
   }
 }

@@ -3,7 +3,7 @@
 Replaces ``repro/kernels/packed_matmul.py:packed_matmul``: ``x @ W``
 with W (K, N) packed along N, or ``x @ W^T`` with W (N, K) packed along
 K when ``transpose``. x is f32 or bf16 with any leading dims; the output
-is (..., N) in x's dtype, summed in f32. In the normal orientation bf16 x
+is (..., N) in x's dtype, summed in f32. In either orientation bf16 x
 against AF8, AF12 or AF16 weights multiplies on the tensor cores in TF32,
 which holds both operands exactly; every other case multiplies in f32.
 The decoded W never reaches device memory, and a call is one launch.
@@ -23,7 +23,8 @@ launches = LaunchCount()
 transposed_launches = LaunchCount()
 
 BN, BM, BK = 64, 8, 32           # the normal orientation's tiles (csrc)
-BN_T = 256                       # the transposed one's columns per block
+BN_T = 128                       # the transposed one's columns per block
+X_SLICE_BYTES = 32 * 1024        # and its budget for a block's x slice
 MAX_SPLITS = 8                   # a thread-block cluster's portable size
 
 
@@ -37,12 +38,18 @@ def split_plan(m: int, n: int, k: int, sms: int, experts: int = 1):
 
 
 def grid_plan(m: int, n: int, k: int, sms: int, experts: int = 1,
-              transpose: bool = False):
-    """``split_plan`` for either orientation: the transposed one's tiles
-    are BN_T columns wide."""
+              transpose: bool = False, x_bytes: int = 2):
+    """``split_plan`` for either orientation. The transposed one's tiles
+    are BN_T columns wide, and a block holds its BM rows of x's K slice
+    (``x_bytes`` an element) in X_SLICE_BYTES of shared memory, so K is
+    cut until a slice fits, up to MAX_SPLITS; the kernel walks a longer
+    slice in passes."""
     tiles = experts * -(-n // (BN_T if transpose else BN)) * -(-m // BM)
     k_tiles = max(-(-k // BK), 1)
     want = min(max(1, -(-sms // tiles)), MAX_SPLITS, k_tiles)
+    if transpose:
+        fit = X_SLICE_BYTES // (BM * x_bytes * BK)     # k tiles a slice holds
+        want = max(want, min(-(-k_tiles // fit), MAX_SPLITS))
     chunk_tiles = -(-k_tiles // want)
     return -(-k_tiles // chunk_tiles), chunk_tiles * BK
 
@@ -51,7 +58,8 @@ def check_operands(op: str, x: torch.Tensor, w_packed: torch.Tensor,
                    bits: int, n: int, transpose: bool, w_ndim: int) -> None:
     """Refuse what the kernel does not take: W's last two axes must be
     (K, >= n) packed along n, or (n, >= K) packed along K when
-    ``transpose``; the normal orientation also needs 16-byte alignment."""
+    ``transpose``, and its rows 16-byte aligned (both orientations stream
+    W with 16-byte copies)."""
     require(x, "x", (torch.float32, torch.bfloat16), op)
     require(w_packed, "w_packed", (torch.int32,), op)
     if bits not in FLOAT_FORMATS:
@@ -67,8 +75,7 @@ def check_operands(op: str, x: torch.Tensor, w_packed: torch.Tensor,
     elif rows != kdim or n > wwords // bits * 32:
         raise ValueError(f"{op}: W {tuple(w_packed.shape)} at {bits} bits "
                          f"is not ({kdim}, >= {n}) packed")
-    elif w_packed.data_ptr() % 16 or wwords % 4:
-        # the normal orientation streams W with 16-byte loads
+    if w_packed.data_ptr() % 16 or wwords % 4:
         raise ValueError(f"{op}: W rows must be 16-byte aligned")
 
 
@@ -82,7 +89,8 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
     out = torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    splits, k_chunk = grid_plan(m, n, kdim, sm_count(x), transpose=transpose)
+    splits, k_chunk = grid_plan(m, n, kdim, sm_count(x), transpose=transpose,
+                                x_bytes=x.element_size())
     rc = library().rt_packed_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w_packed.data_ptr(),
         out.data_ptr(), m, n, kdim, wwords, bits, int(transpose), splits,

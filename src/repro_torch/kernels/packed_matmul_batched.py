@@ -6,7 +6,7 @@ expert ``x[e] @ W[e]`` with the bank W (E, K, N) packed along N, or
 ``x[e] @ W[e]^T`` with W (E, N, K) packed along K when ``transpose``.
 x is (E, C, K) f32 or bf16; the output is (E, C, N) in x's dtype, summed
 in f32, on the tensor cores where the 2-D kernel's are (bf16 x, AF8 to
-AF16, normal orientation). One launch covers every expert (the expert
+AF16, either orientation). One launch covers every expert (the expert
 index shares the grid's z axis with the K split), and no expert's
 decoded weights reach device memory.
 """
@@ -32,7 +32,7 @@ def packed_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor, bits: int,
     if out.numel() == 0:
         return out
     splits, k_chunk = grid_plan(c, n, kdim, sm_count(x), experts=e,
-                                transpose=transpose)
+                                transpose=transpose, x_bytes=x.element_size())
     rc = library().rt_packed_matmul_batched(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w_packed.data_ptr(),
         out.data_ptr(), e, c, n, kdim, wwords, bits, int(transpose), splits,

@@ -298,15 +298,17 @@ def test_split_plans_cover_the_work():
 
 def test_split_plan_fits_a_cluster():
     """A tile's K slices are one thread-block cluster: at most MAX_SPLITS
-    (8) of them, in either orientation. At every normal-orientation shape
-    of a full-width decode tick (8 slots, chip_smoke.py phase 2) of
-    qwen3-8b and deepseek-moe-16b the grid has a block for each of the
-    H100's 132 SMs, except where that cap binds: qwen3's wk/wv (16 column
-    tiles x 8 slices, 128 blocks) and deepseek's router (one tile, 8
-    blocks)."""
+    (8) of them, in either orientation; the transposed one's x slice fits
+    its shared-memory budget wherever 8 slices can hold K. At every
+    normal-orientation shape of a full-width decode tick (8 slots,
+    chip_smoke.py phase 2) of qwen3-8b and deepseek-moe-16b the grid has a
+    block for each of the H100's 132 SMs, except where that cap binds:
+    qwen3's wk/wv (16 column tiles x 8 slices, 128 blocks) and deepseek's
+    router (one tile, 8 blocks)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.packed_matmul import (BM, BN, MAX_SPLITS,
-                                                   grid_plan, split_plan)
+    from repro_torch.kernels.packed_matmul import (BM, BN, BN_T, MAX_SPLITS,
+                                                   X_SLICE_BYTES, grid_plan,
+                                                   split_plan)
     from repro_torch.models import blocks as B
     rng = np.random.default_rng(7)
     for _ in range(300):
@@ -345,6 +347,38 @@ def test_split_plan_fits_a_cluster():
                       ("deepseek_moe_16b", "router", 8)]
     # a full cluster at w_out's depth, as the card test runs it
     assert split_plan(8, 1024, 12288, 132) == (8, 1536)
+    # the transposed orientation: a block holds its BM rows of x's K slice
+    # in X_SLICE_BYTES, so K splits until the slice fits (a longer K walks
+    # its slices in passes); at the tied heads, qwen3's 4096 x 4096 check
+    # shape, deepseek's banks and the speculative verify's 40 rows, every
+    # SM of the H100 gets a block
+    for _ in range(300):
+        m, n, k, e = (int(v) for v in
+                      rng.integers(1, (400, 200000, 40000, 80)))
+        for x_bytes in (2, 4):
+            splits, chunk = grid_plan(m, n, k, 132, e, True, x_bytes)
+            fits = BM * chunk * x_bytes <= X_SLICE_BYTES
+            assert fits or splits == MAX_SPLITS
+            assert fits or k > MAX_SPLITS * X_SLICE_BYTES // (BM * x_bytes)
+    pali, rgemma = get_config("paligemma_3b"), get_config("recurrentgemma_9b")
+    moe = get_config("deepseek_moe_16b")
+    cap = B.capacity(moe, 8)
+    # (what, rows of x, K, N, experts, K splits)
+    for what, m, k, n, e, want in (
+            ("paligemma head", 8, pali.d_model, pali.vocab_size, 1, 1),
+            ("paligemma verify", 40, pali.d_model, pali.vocab_size, 1, 1),
+            ("recurrentgemma head", 8, rgemma.d_model, rgemma.vocab_size, 1,
+             2),
+            ("qwen3 check", 8, 4096, 4096, 1, 5),
+            ("bank dx in", cap, moe.d_model, moe.moe_d_ff, moe.n_experts, 1),
+            ("bank dx out", cap, moe.moe_d_ff, moe.d_model, moe.n_experts,
+             1)):
+        splits, chunk = grid_plan(m, n, k, 132, e, True)
+        blocks = e * -(-n // BN_T) * -(-m // BM) * splits
+        assert splits == want, (what, splits)
+        assert (splits - 1) * chunk < k <= splits * chunk, what
+        assert BM * chunk * 2 <= X_SLICE_BYTES, what
+        assert blocks >= 132, (what, blocks)
 
 
 # Card shapes (b, h, hkv, d, s) on which the attention body stages a
@@ -494,14 +528,17 @@ def test_cuda_decode_every_af16_code(cuda):
 @pytest.mark.parametrize("bits", (8, 12, 16, 20, 24, 32))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
-    """The kernel against its plain version: ragged shapes, and w_out's
-    shape (a 3-way K split) and a full cluster (8-way) made on the card.
+    """The kernel against its plain version: ragged shapes, the
+    speculative verify's 40 rows of x, and w_out's shape (a 3-way K
+    split), a full cluster (8-way) and a K past 8 slices of the transposed
+    orientation's x buffer (slices walked in passes; K odd, so x is
+    copied element by element) made on the card; a misaligned W raises.
     bf16 x at AF8-AF16 runs on the tensor cores, the rest on f32 FMAs
     (AF20 and AF24 codes straddle words)."""
     rng = np.random.default_rng(300 + bits)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     for m, k, n in ((1, 5, 7), (3, 100, 33), (8, 64, 96), (17, 300, 260),
-                    (8, 4096, 1024)):
+                    (40, 1000, 300), (8, 4096, 1024)):
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
         x = x.to(dtype)
         wp = torch.from_numpy(_packed_w(rng, n, k, bits) if transpose
@@ -512,7 +549,7 @@ def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
         torch.testing.assert_close(got.float().cpu(), want.to(dtype).float(),
                                    rtol=tol, atol=tol)
     gen = torch.Generator(device=cuda).manual_seed(300 + bits)
-    for m, k, n in ((8, 12288, 4096), (8, 12288, 1024)):
+    for m, k, n in ((8, 12288, 4096), (8, 12288, 1024), (40, 20001, 300)):
         x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
         w = torch.randn((n, k) if transpose else (k, n), generator=gen,
                         device=cuda) / np.sqrt(k)
@@ -522,30 +559,40 @@ def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
         assert got.dtype == dtype and got.shape == (m, n)
         torch.testing.assert_close(got.float(), want.to(dtype).float(),
                                    rtol=tol, atol=tol)
+    # W off the 16-byte grid is refused, in either orientation
+    flat = torch.zeros(wp.numel() + 1, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.packed_matmul(x, flat[1:].view(wp.shape), bits, n, transpose)
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("bits", (8, 12, 16))
 def test_cuda_packed_matmul_mma_decode_exact(cuda, bits):
-    """The tensor-core path's decode is exact for every code: one-hot bf16
-    rows of x against a W holding each code once (code c in column c, row
-    c % 64, zeros elsewhere) give the plain version's bf16 values bit for
-    bit, with +0 and -0 equal and NaN compared as NaN-ness (a zero times
-    an inf or NaN code is NaN in both)."""
+    """The tensor-core path's decode is exact for every code, in both
+    orientations: one-hot bf16 rows of x against a W holding each code
+    once (code c in column c, row c % 64, zeros elsewhere; transposed,
+    the same table laid out along K, (2^bits, 64)) give the plain
+    version's bf16 values bit for bit, with +0 and -0 equal and NaN
+    compared as NaN-ness (a zero times an inf or NaN code is NaN in
+    both)."""
     k, n = 64, 2**bits
     cols = torch.arange(n)
     codes = torch.zeros((k, n), dtype=torch.int32)
     codes[cols % k, cols] = cols.to(torch.int32)
-    wp = bitpack.pack_groups(codes, bits).to(cuda)
     x = torch.eye(k, dtype=torch.bfloat16, device=cuda)
-    got = ops.packed_matmul(x, wp, bits, n)
-    want = ref.packed_matmul_ref(x, wp, bits, n).bfloat16()
-    assert got.dtype == torch.bfloat16 and got.shape == (k, n)
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    keep = ~torch.isnan(want)
-    assert torch.equal(got[keep].float(), want[keep].float())
-    # the diagonal (row c % 64 of column c) is code c itself
-    diag = want[cols % k, cols].float()
-    assert torch.isinf(diag).sum().item() == 2
+    for transpose in (False, True):
+        table = codes.t().contiguous() if transpose else codes
+        wp = bitpack.pack_groups(table, bits).to(cuda)
+        got = ops.packed_matmul(x, wp, bits, n, transpose)
+        want = ref.packed_matmul_ref(x, wp, bits, n, transpose).bfloat16()
+        assert got.dtype == torch.bfloat16 and got.shape == (k, n)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep].float(), want[keep].float())
+        # the diagonal (row c % 64 of column c) is code c itself
+        diag = want[cols % k, cols].float()
+        assert torch.isinf(diag).sum().item() == 2
 
 
 def _ring_lens(rng, b, s):

@@ -440,14 +440,18 @@ def test_cuda_unfusable_bank_raises(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_packed_matmul_batched(cuda, transpose, bits, dtype):
     """The kernel against its plain version: ragged shapes, one expert,
-    a K split (small E), and 64 experts of one row each (the full-size
-    banks are checked by chip_smoke.py); then, made on the card, one
-    expert at w_out's shape (a 3-way K split) and two experts whose K
-    split fills a cluster (8-way)."""
+    a K split (small E), 40 rows an expert (the speculative verify's),
+    and 64 experts of one row each (the full-size banks are checked by
+    chip_smoke.py); then, made on the card, one expert at w_out's shape
+    (a 3-way K split), two experts whose K split fills a cluster (8-way),
+    and two whose K is past 8 slices of the transposed orientation's x
+    buffer (odd K: slices in passes, x copied element by element); a
+    misaligned bank raises."""
     rng = np.random.default_rng(600 + bits)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     for e, c, k, n in ((1, 1, 5, 7), (3, 2, 70, 37), (8, 3, 128, 64),
-                       (2, 9, 300, 260), (64, 1, 256, 160)):
+                       (2, 9, 300, 260), (2, 40, 500, 150),
+                       (64, 1, 256, 160)):
         rows, cols = (n, k) if transpose else (k, n)
         w = (rng.standard_normal((e, rows, cols)) / np.sqrt(k)).astype(
             np.float32)
@@ -460,7 +464,8 @@ def test_cuda_packed_matmul_batched(cuda, transpose, bits, dtype):
         torch.testing.assert_close(got.float().cpu(), want.to(dtype).float(),
                                    rtol=tol, atol=tol)
     gen = torch.Generator(device=cuda).manual_seed(600 + bits)
-    for e, c, k, n in ((1, 8, 12288, 4096), (2, 3, 12288, 512)):
+    for e, c, k, n in ((1, 8, 12288, 4096), (2, 3, 12288, 512),
+                       (2, 40, 20001, 200)):
         x = torch.randn((e, c, k), generator=gen, device=cuda).to(dtype)
         w = torch.randn((e, n, k) if transpose else (e, k, n), generator=gen,
                         device=cuda) / np.sqrt(k)
@@ -470,6 +475,13 @@ def test_cuda_packed_matmul_batched(cuda, transpose, bits, dtype):
         assert got.dtype == dtype and got.shape == (e, c, n)
         torch.testing.assert_close(got.float(), want.to(dtype).float(),
                                    rtol=tol, atol=tol)
+    # a bank off the 16-byte grid is refused, in either orientation
+    flat = torch.zeros(wp.numel() + 1, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.packed_matmul_batched(x, flat[1:].view(wp.shape), bits, n,
+                                  transpose)
+    assert ops.launch_counts() == before
 
 
 def test_cuda_moe_decode_step_matches_cpu(cuda, cfg):
