@@ -65,6 +65,15 @@ Phases; any failure raises and the script exits non-zero:
    on the check case and its paged drain's tick, also held bit for bit
    to kv_decode over the same rows: each held to its plain version and
    timed beside its bound and library call.
+2d. the prefill path's kernels at the rows a prefill of B = 2, T = 512
+   gives them, bf16 x, AF16: packed_matmul at qwen3-8b's seven products
+   (five shapes) at M = 1,024 and paligemma-3b's tied head, transposed,
+   at M = 512; packed_matmul_batched at deepseek-moe-16b's banks at the
+   capacity of 1,024 tokens; take_rows at 1,024 rows: each held to its
+   plain version and timed beside its bound (FLOPs over TF32's
+   495 TFLOP/s where x is bf16 against AF8-AF16, or bytes) and
+   torch.matmul, torch.bmm or F.embedding on the decoded weights
+   (``prefill`` in the kernels line).
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
    card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
@@ -96,11 +105,24 @@ Phases; any failure raises and the script exits non-zero:
    and unpack, convert and truncate not at all; the drain's last
    decode call is replayed under torch.profiler, as it runs and with
    the append as the eager composition, to count its device launches.
+3b. after each model's drains, on the same engine's weights: ``LM.prefill``
+   and then ``LM.loss`` of a batch of B = 2, T = 512 text tokens
+   (whisper: T = 256 over 1,500 frames; paligemma adds its 256 image
+   tokens), from a seeded generator, at full width and depth: seconds
+   to a device sync, prefill tokens per second, peak memory, the loss,
+   the launches (zeroed just before, read just after, held to the
+   path's: ``prefill_launches``), and per kernel the event time around
+   its calls in the prefill and in the loss (CUDA events around each
+   wrapper call: its device time, plus the host's issue of the call
+   where the stream was idle, so not a device time) beside the bound of
+   its calls; the logits and the loss must be finite.
 4. cross-device parity, for each of the six models at 2 layers (the
-   hybrid at 4: a group and a tail layer) in f32: PARITY_STEPS
-   decode_steps at full width on the card (kernels) against the CPU
-   (plain versions) with the same packed weights, whisper over a cross
-   cache of random values; for deepseek also the number of routing choices
+   hybrid at 4: a group and a tail layer; whisper's encoder at 2) in
+   f32: PARITY_STEPS decode_steps at full width on the card (kernels)
+   against the CPU (plain versions) with the same packed weights,
+   whisper over a cross cache of random values, then ``prefill`` and
+   ``loss`` of one sequence of 64 tokens (the same tolerance, argmax
+   equal); for deepseek also the number of routing choices
    (token, k) that differ between the two; for qwen3's reduced config
    (2 layers, f32) also the paged engine, card against CPU: the same
    tokens and pool counters, and every decode call of the card's drain
@@ -121,6 +143,7 @@ printing either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -136,9 +159,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM, TF32 on the tensor cores
 L2_BYTES = 50 * 2**20
 SLOTS, MAX_SEQ, NEW_TOKENS = 8, 256, 16
 SPEC_K = 4                       # drafted tokens per speculative tick
+# the prefill phase's batch: sequences, text tokens (whisper's decoder
+# takes WHISPER_T over its 1,500 frames); the parity's tokens
+PREFILL_B, PREFILL_T, WHISPER_T, PARITY_T = 2, 512, 256, 64
 PARITY_STEPS = 2                 # full-width decode steps held to the CPU
 # the qwen3-8b drains: a system prompt shared by every request, suffix
 # lengths from, to; the paged drain's page size
@@ -179,9 +206,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def matmul_rate(x_dtype, bits: int) -> float:
+    """The peak rate of packed_matmul's multiplies: TF32 on the tensor
+    cores for bf16 x against AF8-AF16 codes (both exact in TF32), f32
+    FMAs otherwise."""
+    import torch
+    return TF32_FLOPS if x_dtype == torch.bfloat16 and bits <= 16 \
+        else F32_FLOPS
 
 
 def _window_ms(torch, calls, iters: int, hold_cycles: int = 0):
@@ -267,25 +303,25 @@ def width_summary(recs, calls_key):
 
 
 def matmul_case(torch, ops, ref, gen, model, k, n, calls, transpose, xdt,
-                bits, draft_calls=0):
-    """One product x (slots, K) @ W at ``bits``, W (K, N), or (N, K)
+                bits, draft_calls=0, rows=SLOTS, prefill_calls=0):
+    """One product x (rows, K) @ W at ``bits``, W (K, N), or (N, K)
     packed along K when ``transpose``: held to the plain version, timed
     with W rotated past the L2, beside the plain version, cuBLAS on the
-    decoded bf16 W and the bound."""
+    decoded bf16 W and the bound (``matmul_rate``)."""
     wshape = (n, k) if transpose else (k, n)
     w = torch.randn(wshape, generator=gen, device="cuda") / math.sqrt(k)
     wp = ops.pack(w, bits)
     w_lib = (ref.unpack_ref(wp, bits, k if transpose else n)
              .to(torch.bfloat16))
     del w
-    x = torch.randn((SLOTS, k), generator=gen, device="cuda").to(xdt)
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(xdt)
     got = ops.packed_matmul(x, wp, bits, n, transpose)
     want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
     torch.cuda.synchronize()
     err = (got.float() - want).abs().max().item()
     scale = want.abs().max().item()
     tol = (BF16_TOL if xdt == torch.bfloat16 else 1e-5) * scale + 1e-4
-    assert got.dtype == xdt and got.shape == (SLOTS, n)
+    assert got.dtype == xdt and got.shape == (rows, n)
     assert torch.isfinite(got).all().item()
     if err > tol:
         raise AssertionError(f"packed_matmul K={k} N={n} T={transpose} "
@@ -304,11 +340,12 @@ def matmul_case(torch, ops, ref, gen, model, k, n, calls, transpose, xdt,
         50)[0]
     b_ms, b_by = bound(wbytes + x.numel() * x.element_size()
                        + got.numel() * got.element_size(),
-                       2.0 * SLOTS * n * k)
-    rec = {"kernel": "packed_matmul", "model": model, "K": k, "N": n,
-           "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
+                       2.0 * rows * n * k, matmul_rate(xdt, bits))
+    rec = {"kernel": "packed_matmul", "model": model, "M": rows, "K": k,
+           "N": n, "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
            "bits": bits, "calls_per_tick": calls,
-           "draft_calls_per_pass": draft_calls, "max_err": err,
+           "draft_calls_per_pass": draft_calls,
+           "calls_per_prefill": prefill_calls, "max_err": err,
            "tol": tol, "kernel_ms": ms, "host_issue_ms": issue,
            "plain_ms": plain, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib}
@@ -895,19 +932,20 @@ def check_take_rows(torch, F, ops, ref, gen, cfg):
     return summary
 
 
-def _take_many_rows(torch, F, ops, ref, gen, cfg, table, dec):
-    """The (B, T) embed of a whole batch, slots x max_seq_len rows of the
-    AF16 table, to bf16 and f32: bit for bit, and timed (index sets
-    rotated past the L2) beside the bound, the plain version and
-    ``F.embedding`` on the decoded table."""
+def _take_many_rows(torch, F, ops, ref, gen, cfg, table, dec,
+                    rows=SLOTS * MAX_SEQ, case="(B, T) embed"):
+    """The (B, T) embed of a whole batch, ``rows`` rows (slots x
+    max_seq_len unless given) of the AF16 table, to bf16 and f32: bit for
+    bit, and timed (index sets rotated past the L2) beside the bound, the
+    plain version and ``F.embedding`` on the decoded table."""
     v, d = cfg.vocab_size, cfg.d_model
-    rows, words = SLOTS * MAX_SEQ, table.shape[1]
+    words = table.shape[1]
     sets = torch.randint(0, v, (copies_for(rows * (words * 4 + d * 2)),
                                 rows), generator=gen, device="cuda",
                          dtype=torch.int32)
     dec32 = ref.unpack_ref(table, 16, d)
     distinct = sum(ix.unique().numel() for ix in sets) / len(sets)
-    rec = {"kernel": "take_rows", "model": cfg.name, "case": "(B, T) embed",
+    rec = {"kernel": "take_rows", "model": cfg.name, "case": case,
            "rows": rows, "distinct_rows": distinct, "calls_per_tick": 0,
            "max_err": 0.0, "tol": 0.0}
     for dt, name, table_lib in ((torch.bfloat16, "bf16", dec),
@@ -938,6 +976,56 @@ def _take_many_rows(torch, F, ops, ref, gen, cfg, table, dec):
     return rec
 
 
+def batched_case(torch, ops, ref, gen, model, e, c, k, n, calls, transpose,
+                 xdt, prefill_calls=0):
+    """One bank product x (E, C, K) @ W[e] at AF16, W (E, K, N), or
+    (E, N, K) packed along K when ``transpose``: held to the plain
+    version, timed with W rotated past the L2, beside the plain version,
+    torch.bmm on the decoded bf16 banks and the bound."""
+    wshape = (e, n, k) if transpose else (e, k, n)
+    wp = ops.pack(torch.randn(wshape, generator=gen, device="cuda")
+                  / math.sqrt(k), 16)
+    w_lib = ref.unpack_ref(wp, 16, k if transpose else n).to(torch.bfloat16)
+    x = torch.randn((e, c, k), generator=gen, device="cuda").to(xdt)
+    got = ops.packed_matmul_batched(x, wp, 16, n, transpose)
+    want = ref.packed_matmul_batched_ref(x, wp, 16, n, transpose)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = (BF16_TOL if xdt == torch.bfloat16 else 1e-5) * scale + 1e-4
+    assert got.dtype == xdt and got.shape == (e, c, n)
+    assert torch.isfinite(got).all().item()
+    if err > tol:
+        raise AssertionError(
+            f"packed_matmul_batched E={e} C={c} K={k} N={n} "
+            f"T={transpose} {xdt}: max err {err} > tol {tol}")
+    wbytes = wp.numel() * 4
+    reps = [wp] + [wp.clone() for _ in range(copies_for(wbytes) - 1)]
+    libs = [w_lib] + [w_lib.clone() for _ in range(
+        copies_for(w_lib.numel() * 2) - 1)]
+    calls_k = [lambda r=r: ops.packed_matmul_batched(x, r, 16, n, transpose)
+               for r in reps]
+    ms, issue = time_ms(torch, calls_k, 30)
+    plain = time_ms(torch, [lambda: ref.packed_matmul_batched_ref(
+        x, wp, 16, n, transpose)], 3)[0]
+    xb = x.to(torch.bfloat16)
+    lib = time_ms(torch, [lambda r=r: torch.bmm(
+        xb, r.transpose(1, 2) if transpose else r) for r in libs], 30)[0]
+    b_ms, b_by = bound(wbytes + x.numel() * x.element_size()
+                       + got.numel() * got.element_size(),
+                       2.0 * e * c * n * k, matmul_rate(xdt, 16))
+    rec = {"kernel": "packed_matmul_batched", "model": model, "E": e, "C": c,
+           "K": k, "N": n, "transpose": transpose,
+           "x_dtype": str(xdt).split(".")[-1], "calls_per_tick": calls,
+           "calls_per_prefill": prefill_calls, "max_err": err, "tol": tol,
+           "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    log(json.dumps(rec))
+    del reps, libs, wp, w_lib, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_packed_matmul_batched(torch, ops, ref, gen, cfg):
     """The expert banks of a full deepseek-moe-16b decode tick: E = 64
     experts, C = capacity rows each (1 at 8 slots), bf16 x, AF16 banks,
@@ -956,54 +1044,8 @@ def check_packed_matmul_batched(torch, ops, ref, gen, cfg):
              (5, 3, 300, 260, 0, True, torch.bfloat16),
              (5, 3, 300, 260, 0, False, torch.float32),
              (5, 3, 300, 260, 0, True, torch.float32)]
-    per_call = []
-    for ne, c, k, n, calls, transpose, xdt in cases:
-        wshape = (ne, n, k) if transpose else (ne, k, n)
-        wp = ops.pack(torch.randn(wshape, generator=gen, device="cuda")
-                      / math.sqrt(k), 16)
-        w_lib = ref.unpack_ref(wp, 16, k if transpose else n).to(
-            torch.bfloat16)
-        x = torch.randn((ne, c, k), generator=gen, device="cuda").to(xdt)
-        got = ops.packed_matmul_batched(x, wp, 16, n, transpose)
-        want = ref.packed_matmul_batched_ref(x, wp, 16, n, transpose)
-        torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        scale = want.abs().max().item()
-        tol = (BF16_TOL if xdt == torch.bfloat16 else 1e-5) * scale + 1e-4
-        assert got.dtype == xdt and got.shape == (ne, c, n)
-        assert torch.isfinite(got).all().item()
-        if err > tol:
-            raise AssertionError(
-                f"packed_matmul_batched E={ne} C={c} K={k} N={n} "
-                f"T={transpose} {xdt}: max err {err} > tol {tol}")
-        wbytes = wp.numel() * 4
-        reps = [wp] + [wp.clone() for _ in range(copies_for(wbytes) - 1)]
-        libs = [w_lib] + [w_lib.clone() for _ in range(
-            copies_for(w_lib.numel() * 2) - 1)]
-        calls_k = [lambda r=r: ops.packed_matmul_batched(x, r, 16, n,
-                                                         transpose)
-                   for r in reps]
-        ms, issue = time_ms(torch, calls_k, 30)
-        plain = time_ms(torch, [lambda: ref.packed_matmul_batched_ref(
-            x, wp, 16, n, transpose)], 3)[0]
-        xb = x.to(torch.bfloat16)
-        lib = time_ms(torch, [lambda r=r: torch.bmm(
-            xb, r.transpose(1, 2) if transpose else r) for r in libs], 30)[0]
-        b_ms, b_by = bound(wbytes + x.numel() * x.element_size()
-                           + got.numel() * got.element_size(),
-                           2.0 * ne * c * n * k)
-        rec = {"kernel": "packed_matmul_batched", "model": cfg.name,
-               "E": ne, "C": c, "K": k,
-               "N": n, "transpose": transpose,
-               "x_dtype": str(xdt).split(".")[-1], "calls_per_tick": calls,
-               "max_err": err, "tol": tol, "kernel_ms": ms,
-               "host_issue_ms": issue, "plain_ms": plain, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib}
-        log(json.dumps(rec))
-        per_call.append(rec)
-        del reps, libs, wp, w_lib, got, want
-        torch.cuda.empty_cache()
-    return tick_summary(per_call)
+    return tick_summary([batched_case(torch, ops, ref, gen, cfg.name, *case)
+                         for case in cases])
 
 
 # ---------------------------------------------------------------------------
@@ -1343,6 +1385,49 @@ def check_family(torch, F, ops, ref, gen, cfg, seq):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the prefill path's kernels at the rows a prefill gives them
+# ---------------------------------------------------------------------------
+
+def check_prefill_shapes(torch, F, ops, ref, gen, qwen, pali, moe):
+    """The four kernels of the prefill path at its rows (B = 2, T = 512:
+    1,024 rows of x), bf16 x, AF16: qwen3-8b's seven products (five
+    shapes) at M = 1,024; paligemma-3b's tied head, transposed, at
+    M = 512; deepseek-moe-16b's expert banks at the capacity of 1,024
+    tokens; take_rows at 1,024 rows of qwen3-8b's table. Each is held to
+    its plain version and timed beside its bound (FLOPs over TF32's
+    495 TFLOP/s, or bytes over 3.35 TB/s) and the library call on the
+    decoded weights. Returns per kernel its records and, for qwen3-8b's
+    products and deepseek's banks, their sum over one body of the
+    prefill (``calls_per_prefill`` calls of each)."""
+    from repro_torch.models import blocks as B
+
+    rows, bf = PREFILL_B * PREFILL_T, torch.bfloat16
+    mm = [matmul_case(torch, ops, ref, gen, qwen.name, k, n, 0, False, bf,
+                      16, rows=rows, prefill_calls=calls)
+          for k, n, calls, _ in tick_products(qwen)[:-1]]
+    head = matmul_case(torch, ops, ref, gen, pali.name, pali.d_model,
+                       pali.vocab_size, 0, True, bf, 16, rows=rows // 2)
+    e, d, f, L = moe.n_experts, moe.d_model, moe.moe_d_ff, moe.n_layers
+    cap = B.capacity(moe, rows)
+    banks = [batched_case(torch, ops, ref, gen, moe.name, e, cap, d, f, 0,
+                          False, bf, 2 * L),           # w_in, w_gate
+             batched_case(torch, ops, ref, gen, moe.name, e, cap, f, d, 0,
+                          False, bf, L)]               # w_out
+    table = ops.pack(torch.randn((qwen.vocab_size, qwen.d_model),
+                                 generator=gen, device="cuda") * 0.02, 16)
+    dec = ref.unpack_ref(table, 16, qwen.d_model, bf)
+    take = _take_many_rows(torch, F, ops, ref, gen, qwen, table, dec,
+                           rows=rows, case="prefill embed")
+    del table, dec
+    torch.cuda.empty_cache()
+    return {"packed_matmul": {"body": {qwen.name: width_summary(
+                mm, "calls_per_prefill")}, "cases": mm + [head]},
+            "packed_matmul_batched": {"body": {moe.name: width_summary(
+                banks, "calls_per_prefill")}, "cases": banks},
+            "take_rows": {"cases": [take]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve full-width qwen3-8b, deepseek-moe-16b and the four others
 # ---------------------------------------------------------------------------
 
@@ -1624,16 +1709,186 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: prefill and the loss at full width, on phase 3's weights
+# ---------------------------------------------------------------------------
+
+def prefill_launches(cfg, n_chunks: int):
+    """Kernel launches of one ``prefill`` and one ``loss`` (``n_chunks``
+    whole chunks), by the code of the forward: per body (the backbone
+    over the sequence, once in each) the decode body's packed products
+    (``tick_products``), for encdec also the cross attention's wk and wv
+    (projected from the encoder's output, which decoding reads from its
+    cross cache) and the encoder's layers; the three expert banks per
+    MoE layer; one embedding gather; the heads: prefill's at the last
+    position and one per chunk of the loss, transposed where the table
+    is tied. No KV append, attention kernel or materialized decode."""
+    products = tick_products(cfg)
+    per_body = sum(calls for _, _, calls, _ in products[:-1])
+    if cfg.family == "encdec":
+        per_body += (2 * cfg.n_layers + cfg.encoder_layers
+                     * (4 + (3 if cfg.gated_mlp else 2)))
+    heads = 1 + n_chunks
+    return {"packed_matmul": 2 * per_body + heads,
+            "packed_matmul_transposed": heads if products[-1][3] else 0,
+            "pack": 0, "kv_decode": 0, "take_rows": 2,
+            "packed_matmul_batched": (6 * cfg.n_layers
+                                      if cfg.family == "moe" else 0),
+            "paged_attention": 0, "unpack": 0, "convert": 0, "truncate": 0}
+
+
+def prefill_batch(torch, cfg, gen, b, t):
+    """The reference's batch dict for ``cfg``, made from ``gen`` on its
+    device: tokens and labels (b, t), the vlm's patch embeddings,
+    encdec's frames."""
+    batch = {name: torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                                 device=gen.device, dtype=torch.int32)
+             for name in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device=gen.device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device=gen.device)
+    return batch
+
+
+@contextlib.contextmanager
+def kernel_calls(torch, ops):
+    """Inside, each call of packed_matmul, packed_matmul_batched and
+    take_rows is bracketed by two CUDA events on its stream (no sync).
+    ``summarize()`` on the yielded list gives per kernel: calls,
+    ``event_ms``, the sum of the ms between each call's events, and the
+    bound of its calls: each input read once (a gather's distinct rows),
+    each output written once, the multiplies at ``matmul_rate``. The
+    stream is not held, so where it was idle an event pair also spans
+    the host's work in the wrapper (its checks, the grid plan, the
+    launch): ``event_ms`` is the kernel's device time only where the
+    stream was busy, and otherwise more than it."""
+    calls = []
+    wrapped = {"packed_matmul": ops.packed_matmul,
+               "packed_matmul_batched": ops.packed_matmul_batched,
+               "take_rows": ops.take_rows}
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def bracket(name, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            if name == "take_rows":      # its distinct rows, after a sync
+                packed, idx = args[:2]
+                b = (idx, packed.shape[1] * 4, nbytes(idx, out))
+            else:
+                x, w, bits = args[:3]
+                b = bound(nbytes(x, w, out), 2.0 * out.numel() * x.shape[-1],
+                          matmul_rate(x.dtype, bits))[0]
+            calls.append((name, b, start, end))
+            return out
+        return call
+
+    def summarize():
+        torch.cuda.synchronize()
+        out = {}
+        for name, b_ms, start, end in calls:
+            if name == "take_rows":
+                idx, row_bytes, io_bytes = b_ms
+                b_ms = bound(torch.unique(idx).numel() * row_bytes
+                             + io_bytes, 0.0)[0]
+            rec = out.setdefault(name, {"calls": 0, "event_ms": 0.0,
+                                        "bound_ms": 0.0})
+            rec["calls"] += 1
+            rec["event_ms"] += start.elapsed_time(end)
+            rec["bound_ms"] += b_ms
+        return out
+
+    for name, fn in wrapped.items():
+        setattr(ops, name, bracket(name, fn))
+    try:
+        yield summarize
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+
+
+def prefill_phase(torch, ops, cfg, lm, params):
+    """``LM.prefill`` then ``LM.loss`` (under no_grad) of ``cfg`` at full
+    width and depth on ``params`` (phase 3's packed weights, through its
+    engine's ``lm``): B = 2, T = 512 text tokens (whisper T = 256 over
+    1,500 frames; the vlm adds its 256 image tokens), inputs from a
+    seeded generator. The launch counts are zeroed just before and read
+    just after, and must be ``prefill_launches``; the logits and the loss
+    must be finite. Prints the seconds of each to a device sync, prefill
+    tokens per second, peak memory, the launches, and per kernel its
+    calls' event time (``kernel_calls``) beside their bound. Returns the
+    launch counts and those per-kernel numbers of each call."""
+    b = PREFILL_B
+    t = WHISPER_T if cfg.family == "encdec" else PREFILL_T
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = prefill_batch(torch, cfg, gen, b, t)
+    positions = t + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    expect = prefill_launches(cfg, t // min(512, t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        with kernel_calls(torch, ops) as prefill_kernels:
+            logits, state = lm.prefill(params, batch)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with kernel_calls(torch, ops) as loss_kernels:
+            loss = lm.loss(params, batch)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert state == {} and logits.shape == (b, 1, cfg.vocab_size), \
+        logits.shape
+    assert bool(torch.isfinite(logits).all()) and math.isfinite(loss.item())
+    kernels = {"prefill": prefill_kernels(), "loss": loss_kernels()}
+    res = {"model": cfg.name, "batch": [b, t], "positions": positions,
+           "prefill_s": t1 - t0, "loss_s": t2 - t1,
+           "prefill_tokens_per_s": b * t / (t1 - t0),
+           "prefill_positions_per_s": b * positions / (t1 - t0),
+           "loss": loss.item(), "peak_memory_gb": peak,
+           "launches": counts, "launches_expected": expect,
+           "kernels": kernels,
+           "prefill_kernel_event_ms": sum(k["event_ms"] for k in
+                                          kernels["prefill"].values()),
+           "prefill_kernel_bound_ms": sum(k["bound_ms"] for k in
+                                          kernels["prefill"].values()),
+           "phase_s": time.perf_counter() - t0}
+    log("prefill: " + json.dumps(res))
+    for name, n in expect.items():
+        if n and not counts[name]:
+            raise AssertionError(f"{name} never launched on the {cfg.name} "
+                                 "prefill path")
+    if counts != expect:
+        raise AssertionError(f"{cfg.name} prefill: launch counts {counts} "
+                             f"!= path {expect}")
+    return counts, kernels
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
 def parity(torch, np, cfg):
     """PARITY_STEPS decode steps of ``cfg`` cut to 2 layers (the hybrid
     to 4: one group of 2 RG-LRU layers and an attention layer, and one
-    tail layer) in f32, at full width, on the card against the CPU with
-    the same packed weights: max abs logit error (tolerance 1e-3, argmax
-    equal). encdec attends a cross cache of random values (the engine's
-    is all zeros) over all its rows. For the MoE family also the routing
+    tail layer; encdec's encoder to 2) in f32, at full width, on the card
+    against the CPU with the same packed weights: max abs logit error
+    (tolerance 1e-3, argmax equal). encdec attends a cross cache of
+    random values (the engine's is all zeros) over all its rows. Then
+    ``prefill`` and ``loss`` of one sequence of PARITY_T tokens (the
+    vlm's image prefix and encdec's frames included) from a seeded
+    generator: the last position's logits within 1e-3 with the same
+    argmax, the loss within 1e-3. For the MoE family also the routing
     choices (token, k) that ``blocks.route`` gave every MoE call on both
     sides, and how many of them differ: a near-tie in the router can
     flip an expert when the router's sums run in another order."""
@@ -1644,7 +1899,8 @@ def parity(torch, np, cfg):
     from repro_torch.models.lm import LM
 
     small = dataclasses.replace(
-        cfg, n_layers=4 if cfg.family == "hybrid" else 2, dtype="float32")
+        cfg, n_layers=4 if cfg.family == "hybrid" else 2, dtype="float32",
+        encoder_layers=min(cfg.encoder_layers, 2))
     lm_g, lm_c = LM(small, device="cuda"), LM(small, device="cpu")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = lm_g.init(gen)
@@ -1688,19 +1944,40 @@ def parity(torch, np, cfg):
             if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
                 raise AssertionError(f"{small.name} parity step {step}: "
                                      "argmax differs")
+        batch = prefill_batch(torch, small, torch.Generator().manual_seed(1),
+                              1, PARITY_T)
+        with torch.no_grad():
+            pg = [lm_g.prefill(params, {k: v.cuda() for k, v in
+                                        batch.items()})[0].cpu(),
+                  lm_g.loss(params, {k: v.cuda() for k, v in
+                                     batch.items()}).cpu()]
+            pc = [lm_c.prefill(params_c, batch)[0],
+                  lm_c.loss(params_c, batch)]
     finally:
         B.route = route
+    assert pg[0].shape == (1, 1, small.vocab_size)
+    assert torch.isfinite(pg[0]).all().item() and math.isfinite(pg[1].item())
+    prefill_err = (pg[0] - pc[0]).abs().max().item()
+    loss_err = abs(pg[1].item() - pc[1].item())
+    if prefill_err > 1e-3 or loss_err > 1e-3:
+        raise AssertionError(f"{small.name} prefill parity: logit err "
+                             f"{prefill_err}, loss err {loss_err} > 1e-3")
+    if not torch.equal(pg[0].argmax(-1), pc[0].argmax(-1)):
+        raise AssertionError(f"{small.name} prefill parity: argmax differs")
     routing = ""
     if small.family == "moe":
         g, c = torch.cat(choices["cuda"]), torch.cat(choices["cpu"])
-        assert g.shape == c.shape and g.shape[0] == PARITY_STEPS * 2 * SLOTS
+        assert g.shape == c.shape and g.shape[0] == small.n_layers * (
+            PARITY_STEPS * SLOTS + 2 * PARITY_T)
         routing = (f"; routing choices differing card vs CPU: "
                    f"{int((g != c).sum())} of {g.numel()}")
     log(f"parity: {small.name} {small.n_layers} layers f32, {PARITY_STEPS} "
         "decode step(s) "
         "card vs CPU: "
-        f"max abs logit err {worst:.3g} (tol 1e-3), argmax equal{routing} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"max abs logit err {worst:.3g} (tol 1e-3), argmax equal; prefill "
+        f"of {PARITY_T} tokens: max abs logit err {prefill_err:.3g}, argmax "
+        f"equal, loss {pc[1].item():.6g} err {loss_err:.3g} (tol 1e-3)"
+        f"{routing} ({time.perf_counter() - t0:.1f} s)")
 
 
 def paged_parity(torch, np, cfg):
@@ -2057,6 +2334,8 @@ def main() -> int:
             f"{sum(k['bound_ms'] for k in r.values()):.3f} ms "
             + json.dumps({n: round(k["ms"], 4) for n, k in r.items()}))
     standalone = check_unpack_convert(torch, ops, ref, gen, qwen)
+    prefill_shapes = check_prefill_shapes(torch, F, ops, ref, gen, qwen,
+                                          pali, moe)
     log(f"kernels checked ({time.perf_counter() - t_start:.0f} s so far)")
 
     launches = {}                    # drain -> kernel -> launches
@@ -2078,10 +2357,17 @@ def main() -> int:
         launches[name] = serve_speculative(torch, qwen, prompts, dense.params,
                                            spec_paged, plain)
         torch.cuda.empty_cache()
+    prefill_runs = {}                # model -> (launches, kernel numbers)
+    prefill_runs[qwen.name] = prefill_phase(torch, ops, qwen, dense.lm,
+                                            dense.params)
     del dense                      # the weights, before deepseek's
     torch.cuda.empty_cache()
-    launches[moe.name] = serve(torch, moe, random_prompts(np, moe, MOE_PROMPTS),
-                               MOE_NEW_TOKENS, MOE_MAX_SEQ)[0]
+    launches[moe.name], _, eng, _ = serve(
+        torch, moe, random_prompts(np, moe, MOE_PROMPTS), MOE_NEW_TOKENS,
+        MOE_MAX_SEQ)
+    prefill_runs[moe.name] = prefill_phase(torch, ops, moe, eng.lm,
+                                           eng.params)
+    del eng
     torch.cuda.empty_cache()
     heads = {}                       # tied model -> transposed launches
     for cfg in fams:
@@ -2102,9 +2388,13 @@ def main() -> int:
             heads[cfg.name] = sum(   # it to one a decode call, and > 0
                 launches[m]["packed_matmul_transposed"]
                 for m in (cfg.name, cfg.name + " paged") if m in launches)
+        prefill_runs[cfg.name] = prefill_phase(torch, ops, cfg, eng.lm,
+                                               eng.params)
         del eng
         torch.cuda.empty_cache()
-    log(f"served ({time.perf_counter() - t_start:.0f} s so far)")
+    for name, (counts, _) in prefill_runs.items():
+        launches[name + " prefill+loss"] = counts
+    log(f"served and prefilled ({time.perf_counter() - t_start:.0f} s so far)")
     for cfg in (qwen, moe, *fams):
         parity(torch, np, cfg)
     paged_parity(torch, np, qwen)
@@ -2145,6 +2435,17 @@ def main() -> int:
                 m: dict(rm[name]["transposed_head"], launches=heads[m])
                 for m, rm in results.items()
                 if "transposed_head" in rm.get(name, {})}
+        if name in prefill_shapes:   # at the rows the prefill gives it
+            kernels[-1]["prefill"] = dict(
+                prefill_shapes[name],
+                launches_by_model={m: c[name]
+                                   for m, (c, _) in prefill_runs.items()},
+                path_by_model={m: {call: rk[call][name] for call in rk
+                                   if name in rk[call]}
+                               for m, (_, rk) in prefill_runs.items()},
+                path_timing="event_ms: CUDA events around each wrapper "
+                "call, the stream not held: the kernel's device time plus "
+                "the host's issue of the call where the stream was idle")
     log(f"total {time.perf_counter() - t_start:.0f} s; card {smi.stdout.strip()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

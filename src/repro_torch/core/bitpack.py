@@ -13,7 +13,8 @@ import sys
 
 import torch
 
-from repro_torch.core.formats import SLICE_BITS, _srl
+from repro_torch.core.formats import (FLOAT_FORMATS, SLICE_BITS, _srl,
+                                      decode_float, half_to_f32)
 
 GROUP = 32
 
@@ -81,3 +82,15 @@ def unpack_groups(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
     out = torch.stack(cols, dim=-1)                # (..., groups, 32)
     out = out.reshape(out.shape[:-2] + (groups * GROUP,))
     return out[..., :n]
+
+
+def unpack_floats(words: torch.Tensor, width: int, n: int) -> torch.Tensor:
+    """Words (..., G*width) -> the f32 values of their float codes
+    (..., n): ``decode_float`` of :func:`unpack_groups`. AF16 (IEEE
+    binary16, two codes a word, the low half first) converts the words'
+    float16 lanes in one pass and a NaN check, where the general decode
+    takes about ten elementwise passes over the codes."""
+    if width == 16 and sys.byteorder == "little":
+        lanes = words.to(torch.int32).contiguous().view(torch.float16)
+        return half_to_f32(lanes[..., :n])
+    return decode_float(unpack_groups(words, width, n), FLOAT_FORMATS[width])

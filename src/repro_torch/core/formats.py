@@ -163,15 +163,24 @@ def encode_float(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
 # Decode: narrow float code -> f32 (the Value Converter, Section 3.2.5)
 # ---------------------------------------------------------------------------
 
-def _decode_binary16(code: torch.Tensor) -> torch.Tensor:
+def half_to_f32(lanes: torch.Tensor) -> torch.Tensor:
     """AF16 (e5m10, bias 15) is IEEE binary16, whose conversion to f32 is
-    exact: the codes as float16 lanes, converted, NaNs then made
-    canonical (sign | 0x7FC00000) as the general decode makes them."""
+    exact: float16 lanes of AF16 codes, converted, NaNs then made
+    canonical (sign | 0x7FC00000) as the general decode makes them. On
+    the CPU only where there are any; on the card always, as the check
+    would wait for the device."""
+    out = lanes.to(torch.float32)
+    nan = torch.isnan(out)
+    if lanes.device.type != "cpu" or bool(nan.any()):
+        bits = torch.where(lanes.view(torch.int16) < 0,
+                           _INT32_MIN | 0x7FC00000, 0x7FC00000)
+        out = torch.where(nan, bits.to(torch.int32).view(torch.float32), out)
+    return out
+
+
+def _decode_binary16(code: torch.Tensor) -> torch.Tensor:
     half = ((code & 0xFFFF) ^ 0x8000) - 0x8000             # sign-extended
-    out = half.to(torch.int16).view(torch.float16).to(torch.float32)
-    nan = torch.where(half < 0, _INT32_MIN | 0x7FC00000, 0x7FC00000)
-    return torch.where(torch.isnan(out),
-                       nan.to(torch.int32).view(torch.float32), out)
+    return half_to_f32(half.to(torch.int16).view(torch.float16))
 
 
 def decode_float(code: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:

@@ -14,7 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.core.formats import FLOAT_FORMATS, decode_float, decode_int, encode_int
+from repro_torch.core.formats import decode_int, encode_int
 
 
 @dataclasses.dataclass
@@ -30,12 +30,12 @@ class PackedTensor:
 
     def unpack(self) -> torch.Tensor:
         """The materialized decode (Value Extractor + Converter)."""
-        codes = bitpack.unpack_groups(self.data, self.bits,
-                                      self.logical_shape[-1])
+        n = self.logical_shape[-1]
         if self.kind == "float":
-            out = decode_float(codes, FLOAT_FORMATS[self.bits])
+            out = bitpack.unpack_floats(self.data, self.bits, n)
         else:
-            out = decode_int(codes, self.bits, self.signed)
+            out = decode_int(bitpack.unpack_groups(self.data, self.bits, n),
+                             self.bits, self.signed)
         return out.to(self.out_dtype).reshape(self.logical_shape)
 
     def take(self, indices: torch.Tensor) -> torch.Tensor:

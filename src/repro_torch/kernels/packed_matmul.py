@@ -6,7 +6,10 @@ K when ``transpose``. x is f32 or bf16 with any leading dims; the output
 is (..., N) in x's dtype, summed in f32. In either orientation bf16 x
 against AF8, AF12 or AF16 weights multiplies on the tensor cores in TF32,
 which holds both operands exactly; every other case multiplies in f32.
-The decoded W never reaches device memory, and a call is one launch.
+The decoded W never reaches device memory, and a call is one launch
+per MAX_ROWS rows of x: the grid puts x's 8-row tiles on its y axis,
+which holds at most 65,535 blocks, so a longer x is walked in slices
+(``row_slices``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,13 @@ BN, BM, BK = 64, 8, 32           # the normal orientation's tiles (csrc)
 BN_T = 128                       # the transposed one's columns per block
 X_SLICE_BYTES = 32 * 1024        # and its budget for a block's x slice
 MAX_SPLITS = 8                   # a thread-block cluster's portable size
+MAX_ROWS = 65535 * BM            # rows of x one launch's grid covers
+
+
+def row_slices(m: int):
+    """[lo, hi) bounds of the launches over m rows of x, each at most
+    MAX_ROWS rows."""
+    return [(lo, min(lo + MAX_ROWS, m)) for lo in range(0, m, MAX_ROWS)]
 
 
 def split_plan(m: int, n: int, k: int, sms: int, experts: int = 1):
@@ -89,13 +99,16 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor, bits: int, n: int,
     out = torch.empty(lead + (n,), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    splits, k_chunk = grid_plan(m, n, kdim, sm_count(x), transpose=transpose,
-                                x_bytes=x.element_size())
-    rc = library().rt_packed_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w_packed.data_ptr(),
-        out.data_ptr(), m, n, kdim, wwords, bits, int(transpose), splits,
-        k_chunk, stream_ptr(x))
-    check(rc, "packed_matmul")
-    launches.n += 1
-    transposed_launches.n += int(transpose)
+    for lo, hi in row_slices(m):
+        splits, k_chunk = grid_plan(hi - lo, n, kdim, sm_count(x),
+                                    transpose=transpose,
+                                    x_bytes=x.element_size())
+        rc = library().rt_packed_matmul(
+            x.data_ptr() + lo * kdim * x.element_size(),
+            int(x.dtype == torch.bfloat16), w_packed.data_ptr(),
+            out.data_ptr() + lo * n * out.element_size(), hi - lo, n, kdim,
+            wwords, bits, int(transpose), splits, k_chunk, stream_ptr(x))
+        check(rc, "packed_matmul")
+        launches.n += 1
+        transposed_launches.n += int(transpose)
     return out

@@ -7,15 +7,16 @@ expert ``x[e] @ W[e]`` with the bank W (E, K, N) packed along N, or
 x is (E, C, K) f32 or bf16; the output is (E, C, N) in x's dtype, summed
 in f32, on the tensor cores where the 2-D kernel's are (bf16 x, AF8 to
 AF16, either orientation). One launch covers every expert (the expert
-index shares the grid's z axis with the K split), and no expert's
-decoded weights reach device memory.
+index shares the grid's z axis with the K split; an expert's rows lie on
+its y axis, so at most ``MAX_ROWS`` of them), and no expert's decoded
+weights reach device memory.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import LaunchCount, check, library, sm_count, stream_ptr
-from repro_torch.kernels.packed_matmul import check_operands, grid_plan
+from repro_torch.kernels.packed_matmul import MAX_ROWS, check_operands, grid_plan
 
 launches = LaunchCount()
 
@@ -27,6 +28,9 @@ def packed_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor, bits: int,
         raise ValueError(f"packed_matmul_batched: x {tuple(x.shape)} is not "
                          f"(E, C, K) for a bank of {w_packed.shape[0]} experts")
     e, c, kdim = x.shape
+    if c > MAX_ROWS:
+        raise ValueError(f"packed_matmul_batched: {c} rows an expert are past "
+                         f"the {MAX_ROWS} one launch's grid covers")
     wwords = w_packed.shape[2]
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:

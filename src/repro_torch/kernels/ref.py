@@ -30,8 +30,7 @@ def _to_out(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
 def unpack_ref(packed: torch.Tensor, bits: int, n: int,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Value Extractor + Converter: packed words -> floats (last axis n)."""
-    codes = bitpack.unpack_groups(packed, bits, n)
-    return _to_out(decode_float(codes, FLOAT_FORMATS[bits]), out_dtype)
+    return _to_out(bitpack.unpack_floats(packed, bits, n), out_dtype)
 
 
 def take_rows_ref(packed: torch.Tensor, indices: torch.Tensor, bits: int,
@@ -40,10 +39,10 @@ def take_rows_ref(packed: torch.Tensor, indices: torch.Tensor, bits: int,
     """Gather rows of packed words, decode only the gathered rows:
     packed (R, n*bits/32) int32, indices (B,) -> (B, n)."""
     rows = packed[indices.long()]
-    codes = bitpack.unpack_groups(rows, bits, n)
     if kind == "float":
-        return _to_out(decode_float(codes, FLOAT_FORMATS[bits]), out_dtype)
-    return decode_int(codes, bits, signed).to(out_dtype)
+        return _to_out(bitpack.unpack_floats(rows, bits, n), out_dtype)
+    return decode_int(bitpack.unpack_groups(rows, bits, n), bits,
+                      signed).to(out_dtype)
 
 
 def pack_ref(x: torch.Tensor, bits: int) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Blocks of every family: init and single-token decode.
+"""Blocks of every family: init, the forward over a sequence and
+single-token decode.
 
-Port of the decode half of ``repro.models.blocks``: attention (causal,
-windowed or cross), MLP, MoE, Mamba-1 and RG-LRU. ``init_*`` returns
-the parameters of every layer stacked on leading axes ``n`` (an int, or
-a tuple for the hybrid family's (groups, per group) stacks; the
-reference stacks per-layer inits with ``vmap``); ``*_decode`` /
-``mlp_apply`` / ``moe_apply`` take one layer's slice. The train and
-prefill forms (``*_apply`` over a sequence, ``_causal_conv``) come with
-ROADMAP A13.
+Port of ``repro.models.blocks``: attention (causal, windowed or cross),
+MLP, MoE, Mamba-1 and RG-LRU. ``init_*`` returns the parameters of every
+layer stacked on leading axes ``n`` (an int, or a tuple for the hybrid
+family's (groups, per group) stacks; the reference stacks per-layer
+inits with ``vmap``); ``*_apply`` (over a sequence (B, S, d): prefill
+and the loss) and ``*_decode`` (one token) take one layer's slice, and
+``mlp_apply`` / ``moe_apply`` serve both. The recurrences of
+``mamba_apply`` and ``rglru_apply`` are loops over S in f32; the
+reference's checkpointed chunks serve a backward pass, which the port
+does not have yet (ROADMAP A13.2).
 
 The leaves named in ``PLAIN_LEAVES`` are read whole through
 ``layers.unpack_maybe``, as the reference reads them: norm scales, the
@@ -17,14 +20,14 @@ depthwise conv, the SSM and RG-LRU diagonals. No kernel takes them, so
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (append_kv_pool_row,
-                                          decode_attention,
+                                          decode_attention, flash_attention,
                                           paged_decode_attention,
                                           update_kv_cache)
 from repro_torch.models.config import ModelConfig
@@ -62,6 +65,34 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n: Stack) -> Dict:
         p["q_norm"] = _full(gen, n, (hd,), 0.0, dt)
         p["k_norm"] = _full(gen, n, (hd,), 0.0, dt)
     return p
+
+
+def attention_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, causal: bool = True,
+                    window: int = 0, prefix: int = 0,
+                    kv_source: Optional[torch.Tensor] = None,
+                    use_rope: bool = True) -> torch.Tensor:
+    """x (B, S, d) -> x plus attention over the sequence: self-attention
+    (rope at ``positions``, causal, within ``window``), or cross
+    attention over ``kv_source`` (B, Se, d), which is neither roped nor
+    causal. ``prefix`` is accepted and, as in the reference, not passed
+    on: a vlm's image tokens attend causally."""
+    b, s, _ = x.shape
+    hd, h, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    xn = L.rms_norm(x, p["ln"])
+    src = xn if kv_source is None else kv_source
+    q = L.linear(xn, p["wq"]).reshape(b, s, h, hd)
+    k = L.linear(src, p["wk"]).reshape(b, src.shape[1], hkv, hd)
+    v = L.linear(src, p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"])
+        k = L.rms_norm(k, p["k_norm"])
+    if use_rope and kv_source is None:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal and kv_source is None,
+                        window=window)
+    return x + L.linear(o.reshape(b, s, h * hd), p["wo"], "...f,fd->...d")
 
 
 def _project_q(p: Dict, x: torch.Tensor, cfg: ModelConfig):
@@ -256,8 +287,10 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mamba-1 (falcon-mamba) and RG-LRU (recurrentgemma): decode forms
+# Mamba-1 (falcon-mamba) and RG-LRU (recurrentgemma)
 # ---------------------------------------------------------------------------
+
+SCAN_CHUNK = 256                 # positions whose SSM inputs are made at once
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + e^x) with no threshold."""
@@ -274,6 +307,16 @@ def _conv_step(p: Dict, state: Dict, xi: torch.Tensor):
     xc = (torch.einsum("bwc,cw->bc", hist, w)
           + L.unpack_maybe(p["conv_b"], xi.dtype))
     return hist, xc
+
+
+def _causal_conv(x: torch.Tensor, w, b, width: int) -> torch.Tensor:
+    """Depthwise causal conv over x (B, S, C), summed tap by tap in the
+    reference's order."""
+    wq = L.unpack_maybe(w, x.dtype)                          # (C, width)
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1], :] * wq[:, i][None, None, :]
+              for i in range(width))
+    return out + L.unpack_maybe(b, x.dtype)[None, None, :]
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, n: Stack) -> Dict:
@@ -306,6 +349,33 @@ def _ssm_params(p: Dict, xc: torch.Tensor, cfg: ModelConfig):
                    + L.unpack_maybe(p["dt_bias"], torch.float32))
     a = -torch.exp(L.unpack_maybe(p["a_param"], torch.float32))  # (di, n)
     return dt, bm.float(), cm.float(), a
+
+
+def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d): the Mamba-1 block over a sequence from a zero state.
+    The selective scan steps h = exp(dt A) h + dt x B along S in f32,
+    its per-step factors made SCAN_CHUNK positions at a time."""
+    b, s, _ = x.shape
+    xn = L.rms_norm(x, p["ln"])
+    xi, z = L.linear(xn, p["in_proj"]).chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"], cfg.d_conv))
+    dt, bm, cm, a = _ssm_params(p, xc, cfg)
+    xcf = xc.float()
+    h = torch.zeros((b, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t0 in range(0, s, SCAN_CHUNK):
+        dt_c = dt[:, t0:t0 + SCAN_CHUNK]
+        da = torch.exp(dt_c[..., None] * a)                 # (B, c, di, n)
+        dbx = ((dt_c * xcf[:, t0:t0 + SCAN_CHUNK])[..., None]
+               * bm[:, t0:t0 + SCAN_CHUNK, None, :])
+        for t in range(dt_c.shape[1]):
+            h = da[:, t] * h + dbx[:, t]
+            ys.append(torch.einsum("bcn,bn->bc", h, cm[:, t0 + t]))
+    y = torch.stack(ys, dim=1) + xcf * L.unpack_maybe(p["d_param"],
+                                                      torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    return x + L.linear(y, p["out_proj"], "...c,cd->...d")
 
 
 def mamba_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -355,6 +425,24 @@ def _rglru_gates(p: Dict, xc: torch.Tensor):
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     return a, mult * i * xf
+
+
+def rglru_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d): the RG-LRU block over a sequence from a zero state,
+    h = a h + sqrt(1 - a^2) i x stepped along S in f32."""
+    b, s, _ = x.shape
+    xn = L.rms_norm(x, p["ln"])
+    xi = L.linear(xn, p["rg_in_w"])
+    gate = F.gelu(L.linear(xn, p["rg_gate_w"]), approximate="tanh")
+    xc = _causal_conv(xi, p["conv_w"], p["conv_b"], cfg.d_conv)
+    a, bx = _rglru_gates(p, xc)
+    h = torch.zeros((b, xi.shape[-1]), dtype=torch.float32, device=x.device)
+    hs = []
+    for t in range(s):
+        h = a[:, t] * h + bx[:, t]
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype) * gate
+    return x + L.linear(y, p["rg_out"], "...c,cd->...d")
 
 
 def rglru_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,

@@ -7,8 +7,8 @@ only ``compute_dtype`` maps to a torch dtype.
 One ``ModelConfig`` describes any of: dense GQA decoder LMs, fine-grained
 MoE, MoE + dense residual, Mamba-1 SSM, RG-LRU/local-attention hybrids,
 encoder-decoder audio backbones, and VLM (prefix + decoder) backbones.
-The port serves every family (decode only; prefill and training come
-with ROADMAP A13). ``reduced()`` derives the small same-family variant
+The port serves every family and runs its prefill and the loss's
+forward; training comes with ROADMAP A13.2. ``reduced()`` derives the small same-family variant
 used by the CPU tests.
 """
 from __future__ import annotations

@@ -21,8 +21,9 @@ Port of ``repro.models.layers``. Weights arrive as tensors or
   * Packed norm scales decode through ``unpack_maybe``, as in the
     reference (a materialized decode, no kernel).
 
-The training pieces (custom gradients, ``STWeight``) come with ROADMAP
-A13.
+Every function takes any leading dims of x: (B, 1) when decoding,
+(B, T) over a sequence. The training pieces (custom gradients,
+``STWeight``) come with ROADMAP A13.2.
 """
 from __future__ import annotations
 

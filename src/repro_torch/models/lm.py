@@ -1,8 +1,12 @@
-"""Model assembly for every family: init, decode state, decode steps.
+"""Model assembly for every family: init, the forward over a sequence
+(prefill and the loss), decode state and decode steps.
 
-Port of the serving surface of ``repro.models.lm.LM``:
+Port of ``repro.models.lm.LM``:
 
   * ``init(gen)``                          -> params (stacked (L, ...) leaves)
+  * ``loss(params, batch, s_chunk)``       -> scalar LM loss (forward only)
+  * ``prefill(params, batch)``             -> (last-position logits, {})
+  * ``input_specs(shape)``                 -> (shape, dtype) of every input
   * ``init_decode_state(batch, seq_len)``  -> zeroed per-slot decode state
   * ``init_paged_decode_state(batch, seq_len, page_size, n_pages)``
                                            -> zeroed page pool + page table
@@ -15,19 +19,28 @@ Port of the serving surface of ``repro.models.lm.LM``:
 The reference's ``lax.scan`` over the stacked layers becomes a Python
 loop over layer slices; a slice of a contiguous stacked payload is
 contiguous, so the kernels read it in place. The per-layer views are
-built once per parameter tree (``layer_params``). The decode state is
+built once per parameter tree (``layer_params``), and the forward over
+a sequence and the decode body walk the same views. The decode state is
 updated in place (the returned state shares its caches and recurrent
 state with the one passed in); ``len`` is a new tensor each step.
 
-Families: dense and vlm (attention and MLP; vlm serving feeds tokens
-only, the image prefix enters at prefill, A13), moe (``moe_apply`` in
-place of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
+``prefill`` and ``loss`` take the reference's batch dicts: ``tokens``
+(B, T), ``labels`` (B, T) for the loss, the vlm's ``patch_embeds`` (B,
+num_image_tokens, d) f32 (the image prefix, put before the tokens) and
+encdec's ``frames`` (B, encoder_seq, d) f32 (the encoder's input). As in
+the reference, the vlm's prefix attends causally (``attention_apply``
+does not pass it on), and the loss sums ``T // s_chunk`` whole chunks
+and divides by B T. ``prefill`` returns no decode state: serving ingests
+prompts through ``prefill_step``.
+
+Families: dense and vlm (attention and MLP), moe (``moe_apply`` in place
+of ``mlp_apply``; its stacked (L, E, K, N) expert banks slice to
 per-layer 3-D banks), encdec (decoder self-attention, cross-attention
-over the cross cache ``cross`` {ck, cv} for ``clen`` rows, MLP; the
-encoder runs at prefill, A13), ssm (Mamba-1 blocks over ``conv`` and
-``ssm`` state) and hybrid (groups of ``pattern_rec`` RG-LRU layers and
-one local-attention layer, each followed by an MLP, then a tail of
-RG-LRU layers; the attention cache is a ring of
+over the encoder's output at prefill, over the cross cache ``cross``
+{ck, cv} for ``clen`` rows when decoding, MLP), ssm (Mamba-1 blocks over
+``conv`` and ``ssm`` state) and hybrid (groups of ``pattern_rec`` RG-LRU
+layers and one local-attention layer, each followed by an MLP, then a
+tail of RG-LRU layers; the attention cache is a ring of
 ``min(attn_window, seq_len)`` rows). The recurrent families cannot roll
 their state back (``supports_rollback``), so they neither page nor
 speculate, and the engine feeds their prompts one token a tick.
@@ -59,7 +72,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
 class Refused(ValueError):
@@ -114,8 +127,9 @@ class LM:
     # paged states: attend through the table (True) or take the gather
     # route (False, the CPU parity oracle); no effect on dense states
     paged_attn: bool = True
-    # (params, per-layer views) of the last parameter tree decoded from
-    _views: Optional[Tuple[Dict, List[Dict]]] = dataclasses.field(
+    # (params, per-layer views, encoder views) of the last parameter tree
+    # decoded from
+    _views: Optional[Tuple[Dict, List[Dict], List[Dict]]] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
@@ -186,6 +200,119 @@ class LM:
         x = L.rms_norm(x, params["final_norm"])
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         return L.unembed(x, head, cfg.tie_embeddings)
+
+    # -------------------------------------------------------------- forward
+    def _positions(self, batch_size: int, s: int) -> torch.Tensor:
+        return torch.arange(s, device=self.device)[None].expand(batch_size,
+                                                                s)
+
+    def _backbone(self, params, x: torch.Tensor, positions: torch.Tensor,
+                  prefix: int = 0,
+                  enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Every layer over the sequence x (B, S, d), in
+        ``_layer_views``' order."""
+        cfg = self.cfg
+        fam = cfg.family
+        for lp in self.layer_params(params):
+            if fam == "ssm":
+                x = B.mamba_apply(lp["mamba"], x, cfg)
+                continue
+            if "rec" in lp:
+                x = B.rglru_apply(lp["rec"], x, cfg)
+            elif fam == "hybrid":
+                x = B.attention_apply(lp["attn"], x, cfg, positions,
+                                      window=cfg.attn_window)
+            elif fam == "encdec":
+                x = B.attention_apply(lp["self"], x, cfg, positions)
+                x = B.attention_apply(lp["cross"], x, cfg, positions,
+                                      kv_source=enc_out, use_rope=False)
+            else:
+                x = B.attention_apply(lp["attn"], x, cfg, positions,
+                                      prefix=prefix)
+            if fam == "moe":
+                x = B.moe_apply(lp["moe"], x, cfg)
+            else:
+                x = B.mlp_apply(lp["mlp"], x, cfg)
+        return x
+
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encdec encoder over stub frame embeddings (B, Se, d):
+        roped, non-causal self-attention and an MLP per layer, then
+        ``enc_norm``."""
+        cfg = self.cfg
+        x = frames.to(device=self.device, dtype=cfg.compute_dtype)
+        pos = self._positions(x.shape[0], x.shape[1])
+        for lp in self.encoder_params(params):
+            x = B.attention_apply(lp["attn"], x, cfg, pos, causal=False)
+            x = B.mlp_apply(lp["mlp"], x, cfg)
+        return L.rms_norm(x, params["enc_norm"])
+
+    def _embed_inputs(self, params, batch: Dict
+                      ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+        """(hidden (B, S, d), prefix length, encoder output) of a batch
+        dict of any family."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = L.embed(tokens, params["embed"]).to(cfg.compute_dtype)
+        prefix, enc_out = 0, None
+        if cfg.family == "vlm":
+            img = torch.as_tensor(batch["patch_embeds"], device=self.device)
+            x = torch.cat([img.to(cfg.compute_dtype), x], dim=1)
+            prefix = cfg.num_image_tokens
+        if cfg.family == "encdec":
+            enc_out = self._encode(params, torch.as_tensor(batch["frames"]))
+        return x, prefix, enc_out
+
+    def _forward(self, params, batch: Dict) -> Tuple[torch.Tensor, int]:
+        x, prefix, enc_out = self._embed_inputs(params, batch)
+        positions = self._positions(x.shape[0], x.shape[1])
+        return self._backbone(params, x, positions, prefix, enc_out), prefix
+
+    def loss(self, params, batch: Dict, s_chunk: int = 512) -> torch.Tensor:
+        """Mean next-token cross entropy in f32 over ``labels`` (B, S),
+        the logits made ``s_chunk`` positions at a time. As the
+        reference does, only the ``S // s_chunk`` whole chunks are
+        summed, over B S."""
+        h, prefix = self._forward(params, batch)
+        if prefix:
+            h = h[:, prefix:]
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        b, s = labels.shape
+        s_chunk = min(s_chunk, s)
+        tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(s // s_chunk):
+            cut = slice(i * s_chunk, (i + 1) * s_chunk)
+            logits = self.logits_fn(params, h[:, cut]).float()
+            gold = logits.gather(-1, labels[:, cut, None])[..., 0]
+            tot = tot + (torch.logsumexp(logits, dim=-1) - gold).sum()
+        return tot / (b * s)
+
+    def prefill(self, params, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """The whole prompt; returns the last position's logits (B, 1, V)
+        and no decode state."""
+        h, _ = self._forward(params, batch)
+        return self.logits_fn(params, h[:, -1:]), {}
+
+    def input_specs(self, shape: ShapeConfig
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of every model input of a shape cell, nothing
+        allocated: tokens (and labels to train; the vlm's patch
+        embeddings, encdec's frames) for a train or prefill cell, one
+        new token per sequence to decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind not in ("train", "prefill"):
+            return {"tokens": ((b, 1), torch.int32)}
+        specs = {"tokens": ((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s), torch.int32)
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = ((b, cfg.num_image_tokens, cfg.d_model),
+                                     torch.float32)
+        if cfg.family == "encdec":
+            specs["frames"] = ((b, cfg.encoder_seq, cfg.d_model),
+                               torch.float32)
+        return specs
 
     # --------------------------------------------------------------- decode
     @property
@@ -357,8 +484,8 @@ class LM:
         views += [layer_slice(params["tail"], t) for t in range(tail)]
         return views
 
-    def layer_params(self, params: Dict) -> List[Dict]:
-        """Every layer's parameters (``_layer_views``), built once per
+    def _views_of(self, params: Dict) -> Tuple[Dict, List[Dict], List[Dict]]:
+        """(params, decoder views, encoder views), built once per
         parameter tree (the tree is read-only while it serves): stacked
         leaves sliced (a stacked (L, E, K, N) expert bank gives a 3-D
         bank per layer), and the packed leaves no kernel takes
@@ -370,10 +497,23 @@ class LM:
                 if is_packed(leaf) and path[-1] in B.PLAIN_LEAVES:
                     return L.unpack_maybe(leaf)
                 return leaf
-            views = [tree_map_with_path(decode_plain, view)
-                     for view in self._layer_views(params)]
-            self._views = (params, views)
-        return self._views[1]
+            def decoded(views):
+                return [tree_map_with_path(decode_plain, v) for v in views]
+            enc = [layer_slice(params["enc_blocks"], i)
+                   for i in range(self.cfg.encoder_layers)
+                   ] if "enc_blocks" in params else []
+            self._views = (params, decoded(self._layer_views(params)),
+                           decoded(enc))
+        return self._views
+
+    def layer_params(self, params: Dict) -> List[Dict]:
+        """Every layer's parameters (``_layer_views``), once per tree
+        (``_views_of``)."""
+        return self._views_of(params)[1]
+
+    def encoder_params(self, params: Dict) -> List[Dict]:
+        """The encdec encoder's layers, once per tree (``_views_of``)."""
+        return self._views_of(params)[2]
 
     def _self_attention(self, lp: Dict, x: torch.Tensor, state: Dict,
                         layer_kv: Dict, bits: Optional[int]) -> torch.Tensor:

@@ -296,6 +296,22 @@ def test_split_plans_cover_the_work():
         assert (n_chunks - 1) * chunk < s <= n_chunks * chunk
 
 
+def test_row_slices_stay_within_the_grid():
+    """x's rows are walked in launches of at most MAX_ROWS (65,535 row
+    tiles of BM = 8 on the grid's y axis): contiguous, covering every row
+    once; one launch up to MAX_ROWS, two just past it."""
+    from repro_torch.kernels.packed_matmul import BM, MAX_ROWS, row_slices
+    assert MAX_ROWS == 65535 * BM == 524280
+    for m in (1, 8, 1024, MAX_ROWS - 1, MAX_ROWS, MAX_ROWS + 1,
+              524288 + 8, 3 * MAX_ROWS + 5):
+        plan = row_slices(m)
+        assert plan[0][0] == 0 and plan[-1][1] == m
+        assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+        assert all(0 < hi - lo <= MAX_ROWS for lo, hi in plan)
+        assert len(plan) == -(-m // MAX_ROWS)
+    assert row_slices(0) == []
+
+
 def test_split_plan_fits_a_cluster():
     """A tile's K slices are one thread-block cluster: at most MAX_SPLITS
     (8) of them, in either orientation; the transposed one's x slice fits
@@ -565,6 +581,31 @@ def test_cuda_packed_matmul(cuda, transpose, bits, dtype):
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.packed_matmul(x, flat[1:].view(wp.shape), bits, n, transpose)
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_packed_matmul_past_the_row_tile_limit(cuda, transpose, dtype):
+    """524,288 + 8 rows of x, past the 524,280 one launch's grid covers
+    (65,535 row tiles on its y axis): two launches, every row held to the
+    plain version, the rows of the second launch included."""
+    from repro_torch.kernels.packed_matmul import MAX_ROWS
+    m, k, n, bits = 524288 + 8, 64, 40, 16
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn((2, m // 2, k), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((n, k) if transpose else (k, n), generator=gen,
+                    device=cuda) / np.sqrt(k)
+    wp = ref.pack_ref(w, bits)
+    before = ops.launch_counts()["packed_matmul"]
+    got = ops.packed_matmul(x, wp, bits, n, transpose)
+    assert ops.launch_counts()["packed_matmul"] == before + 2
+    want = ref.packed_matmul_ref(x, wp, bits, n, transpose)
+    assert got.dtype == dtype and got.shape == (2, m // 2, n)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=tol,
+                               atol=tol)
+    tail = got.reshape(m, n)[MAX_ROWS:]
+    assert tail.shape[0] == m - MAX_ROWS and bool(tail.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("bits", (8, 12, 16))
