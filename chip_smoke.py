@@ -44,7 +44,8 @@ Phases; any failure raises and the script exits non-zero:
    paged, clamped and scrap rows included, and timed per layer beside
    the eager composition it replaced (a cast, a pack and index writes
    per row), each with its host issue time.
-2b. unpack, convert and truncate, which no model path calls, once: bit
+2b. unpack, convert and truncate, which no serving path calls (unpack
+   is on the training path: 2e, 3c), once: bit
    for bit (tolerance 0, bit patterns compared, so -0.0 and NaN bits
    count) against their plain versions at qwen3-8b's w_up leaf (4096,
    12288) and a ragged (7, 1000), all 7 widths; convert also on every
@@ -74,6 +75,18 @@ Phases; any failure raises and the script exits non-zero:
    495 TFLOP/s where x is bf16 against AF8-AF16, or bytes) and
    torch.matmul, torch.bmm or F.embedding on the decoded weights
    (``prefill`` in the kernels line).
+2e. the training path's kernels at the rows a train step of B = 2,
+   T = 512 gives them (whisper T = 256), bf16 x, AF16: the transposed
+   packed_matmul as the dx of qwen3-8b's five product shapes at
+   M = 1,024 (its untied head's, contracting over the vocabulary, among
+   them) and of whisper-small's untied head at M = 512; the normal
+   orientation as the dx of a tied head (paligemma-3b's table, K =
+   257,216; on no trained model's path); packed_matmul_batched,
+   transposed, as the dx of deepseek-moe-16b's banks at the capacity of
+   1,024 tokens; pack and unpack over one AF16 moment leaf of qwen3-8b's
+   w_up shape: each held to its plain version (pack and unpack bit for
+   bit) and timed beside its bound and library call (``train`` in the
+   kernels line, with ``calls_per_train_step``).
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
    card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
@@ -116,6 +129,22 @@ Phases; any failure raises and the script exits non-zero:
    wrapper call: its device time, plus the host's issue of the call
    where the stream was idle, so not a device time) beside the bound of
    its calls; the logits and the loss must be finite.
+3c. training at full width through the port's ``Trainer``: qwen3-8b at 4
+   layers, deepseek-moe-16b at 2 and whisper-small at its full depth,
+   each for TRAIN_STEPS packed-master steps (repack every step, the
+   staleness probe every step) and as many dense steps from the same
+   seed; B = 2, T = 512 (whisper 256 over 1,500 random frames: the
+   Trainer's zero frames overflow the encoder's gradient at this
+   depth, in the reference too), lr 1e-3, bf16 weights and
+   activations, AF16 codes and moments. Launch counters are zeroed just
+   before each run and read just after; every step's launches must be
+   the path's (``train_launches``: both matmul orientations, the banks,
+   one take_rows, pack and unpack per leaf and moment), the run's the
+   init's encodes plus the steps'. Held: packed losses within 1e-2 of
+   dense at every step, staleness 0.0 after each repack, the final
+   ``train.metrics`` event's keys exactly ``TRAIN_FINAL_KEYS``. Prints
+   per run the step seconds to a device sync, tokens/s, peak memory,
+   losses, staleness, weight-read bytes and a step's launches.
 4. cross-device parity, for each of the six models at 2 layers (the
    hybrid at 4: a group and a tail layer; whisper's encoder at 2) in
    f32: PARITY_STEPS decode_steps at full width on the card (kernels)
@@ -134,7 +163,12 @@ Phases; any failure raises and the script exits non-zero:
    dispatched); greedy speculative drains, card tokens against the
    CPU's; and recurrentgemma's reduced config with a window of 8 and 4
    layers, drained on the card and on the CPU past its window (its
-   attention ring wraps): the same tokens.
+   attention ring wraps): the same tokens. Then one packed-master
+   gradient of qwen3-8b, deepseek-moe-16b and whisper-small at 2 layers,
+   full width, f32, over PARITY_T tokens, on the same AF16 codes and
+   masters on the card and on the CPU: the loss within 1e-4 relative
+   and every master's gradient within 1e-3 relative L2; deepseek's
+   differing routing choices counted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds every kernel's numbers. Without a card, or without the rest of the
@@ -167,6 +201,11 @@ SPEC_K = 4                       # drafted tokens per speculative tick
 # takes WHISPER_T over its 1,500 frames); the parity's tokens
 PREFILL_B, PREFILL_T, WHISPER_T, PARITY_T = 2, 512, 256, 64
 PARITY_STEPS = 2                 # full-width decode steps held to the CPU
+# phase 3c: depth of each trained model (whisper: all of it), steps of
+# each run, the packed-master losses' tolerance against dense
+# (BENCH_train_packed.json's loss_rtol); phase 4's gradient tolerance
+TRAIN_LAYERS = {"qwen3-8b": 4, "deepseek-moe-16b": 2}
+TRAIN_STEPS, TRAIN_LOSS_RTOL, GRAD_RTOL = 3, 1e-2, 1e-3
 # the qwen3-8b drains: a system prompt shared by every request, suffix
 # lengths from, to; the paged drain's page size
 SYSTEM_PROMPT, SUFFIXES, PAGE = 64, (8, 32), 16
@@ -303,7 +342,8 @@ def width_summary(recs, calls_key):
 
 
 def matmul_case(torch, ops, ref, gen, model, k, n, calls, transpose, xdt,
-                bits, draft_calls=0, rows=SLOTS, prefill_calls=0):
+                bits, draft_calls=0, rows=SLOTS, prefill_calls=0,
+                train_calls=0):
     """One product x (rows, K) @ W at ``bits``, W (K, N), or (N, K)
     packed along K when ``transpose``: held to the plain version, timed
     with W rotated past the L2, beside the plain version, cuBLAS on the
@@ -345,7 +385,8 @@ def matmul_case(torch, ops, ref, gen, model, k, n, calls, transpose, xdt,
            "N": n, "transpose": transpose, "x_dtype": str(xdt).split(".")[-1],
            "bits": bits, "calls_per_tick": calls,
            "draft_calls_per_pass": draft_calls,
-           "calls_per_prefill": prefill_calls, "max_err": err,
+           "calls_per_prefill": prefill_calls,
+           "calls_per_train_step": train_calls, "max_err": err,
            "tol": tol, "kernel_ms": ms, "host_issue_ms": issue,
            "plain_ms": plain, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib}
@@ -977,7 +1018,7 @@ def _take_many_rows(torch, F, ops, ref, gen, cfg, table, dec,
 
 
 def batched_case(torch, ops, ref, gen, model, e, c, k, n, calls, transpose,
-                 xdt, prefill_calls=0):
+                 xdt, prefill_calls=0, train_calls=0):
     """One bank product x (E, C, K) @ W[e] at AF16, W (E, K, N), or
     (E, N, K) packed along K when ``transpose``: held to the plain
     version, timed with W rotated past the L2, beside the plain version,
@@ -1017,7 +1058,8 @@ def batched_case(torch, ops, ref, gen, model, e, c, k, n, calls, transpose,
     rec = {"kernel": "packed_matmul_batched", "model": model, "E": e, "C": c,
            "K": k, "N": n, "transpose": transpose,
            "x_dtype": str(xdt).split(".")[-1], "calls_per_tick": calls,
-           "calls_per_prefill": prefill_calls, "max_err": err, "tol": tol,
+           "calls_per_prefill": prefill_calls,
+           "calls_per_train_step": train_calls, "max_err": err, "tol": tol,
            "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     log(json.dumps(rec))
@@ -1049,7 +1091,7 @@ def check_packed_matmul_batched(torch, ops, ref, gen, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 2b: unpack, convert and truncate (on no model path)
+# phase 2b: unpack, convert and truncate (on no serving path)
 # ---------------------------------------------------------------------------
 
 def _expect_same_bits(torch, got, want, what: str) -> None:
@@ -1712,6 +1754,19 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
 # phase 3b: prefill and the loss at full width, on phase 3's weights
 # ---------------------------------------------------------------------------
 
+def body_products(cfg) -> int:
+    """Packed 2-D products of one forward over a sequence, its head
+    aside: the decode body's (``tick_products``) and, for encdec, the
+    cross attention's wk and wv (projected from the encoder's output,
+    which decoding reads from its cross cache) and the encoder's
+    layers."""
+    per_body = sum(calls for _, _, calls, _ in tick_products(cfg)[:-1])
+    if cfg.family == "encdec":
+        per_body += (2 * cfg.n_layers + cfg.encoder_layers
+                     * (4 + (3 if cfg.gated_mlp else 2)))
+    return per_body
+
+
 def prefill_launches(cfg, n_chunks: int):
     """Kernel launches of one ``prefill`` and one ``loss`` (``n_chunks``
     whole chunks), by the code of the forward: per body (the backbone
@@ -1723,10 +1778,7 @@ def prefill_launches(cfg, n_chunks: int):
     position and one per chunk of the loss, transposed where the table
     is tied. No KV append, attention kernel or materialized decode."""
     products = tick_products(cfg)
-    per_body = sum(calls for _, _, calls, _ in products[:-1])
-    if cfg.family == "encdec":
-        per_body += (2 * cfg.n_layers + cfg.encoder_layers
-                     * (4 + (3 if cfg.gated_mlp else 2)))
+    per_body = body_products(cfg)
     heads = 1 + n_chunks
     return {"packed_matmul": 2 * per_body + heads,
             "packed_matmul_transposed": heads if products[-1][3] else 0,
@@ -1875,6 +1927,231 @@ def prefill_phase(torch, ops, cfg, lm, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: the training path's kernels at the rows a train step gives them
+# ---------------------------------------------------------------------------
+
+def moment_case(torch, ops, ref, gen, cfg, kernel):
+    """``ops.pack`` (f32 -> AF16) or ``ops.unpack`` (AF16 -> f32) over one
+    moment leaf of ``cfg``'s w_up shape, as AdamW encodes and decodes
+    it: bit for bit against the plain version; timed beside it, the
+    bound (bytes) and the library call on float16 storage."""
+    d, f = cfg.d_model, cfg.d_ff
+    m = torch.randn((d, f), generator=gen, device="cuda") * 1e-3
+    words = ops.pack(m, 16)
+    if kernel == "pack":
+        _expect_same_bits(torch, words, ref.pack_ref(m, 16), "pack moment")
+        calls = [lambda: ops.pack(m, 16)]
+        plain = [lambda: ref.pack_ref(m, 16)]
+        lib = [lambda: m.to(torch.float16).view(torch.int32)]
+    else:
+        _expect_same_bits(torch, ops.unpack(words, 16, f),
+                          ref.unpack_ref(words, 16, f), "unpack moment")
+        calls = [lambda: ops.unpack(words, 16, f)]
+        plain = [lambda: ref.unpack_ref(words, 16, f)]
+        lib = [lambda: words.view(torch.float16).to(torch.float32)]
+    ms, issue = time_ms(torch, calls, 30)
+    b_ms, b_by = bound(m.numel() * 4 + words.numel() * 4, 0.0)
+    rec = {"kernel": kernel, "model": cfg.name, "case": "moment leaf",
+           "shape": [d, f], "bits": 16, "max_err": 0.0,
+           "kernel_ms": ms, "host_issue_ms": issue,
+           "plain_ms": time_ms(torch, plain, 3)[0], "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": time_ms(torch, lib, 30)[0]}
+    log(json.dumps(rec))
+    del m, words
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_train_shapes(torch, ops, ref, gen, qwen, whisper, moe, pali):
+    """The training path's kernels at the rows a step of B = 2, T = 512
+    gives them (whisper T = 256), bf16 x, AF16, each held to its plain
+    version and timed beside its bound and the library call on the
+    decoded weights: the transposed packed_matmul as the dx of qwen3-8b's
+    five product shapes at M = 1,024 (calls a step at TRAIN_LAYERS) and
+    of whisper-small's untied head (its K the vocabulary, 51,865); the
+    normal orientation as the dx of a tied head (paligemma-3b's table,
+    K = 257,216: no trained model ties its head, so on no path here);
+    packed_matmul_batched, transposed, at deepseek-moe-16b's banks at
+    the capacity of 1,024 tokens; pack and unpack over one moment leaf
+    of qwen3-8b's w_up shape."""
+    from repro_torch.models import blocks as B
+
+    rows, bf = PREFILL_B * PREFILL_T, torch.bfloat16
+    q = dataclasses.replace(qwen, n_layers=TRAIN_LAYERS[qwen.name])
+    dx = [matmul_case(torch, ops, ref, gen, qwen.name, n, k, 0, True, bf,
+                      16, rows=rows, train_calls=calls)
+          for k, n, calls, _ in tick_products(q)]
+    heads = [matmul_case(torch, ops, ref, gen, whisper.name,
+                         whisper.vocab_size, whisper.d_model, 0, True, bf, 16,
+                         rows=PREFILL_B * WHISPER_T, train_calls=1),
+             matmul_case(torch, ops, ref, gen, pali.name, pali.vocab_size,
+                         pali.d_model, 0, False, bf, 16, rows=rows)]
+    e, d, f = moe.n_experts, moe.d_model, moe.moe_d_ff
+    L, cap = TRAIN_LAYERS[moe.name], B.capacity(moe, rows)
+    banks = [batched_case(torch, ops, ref, gen, moe.name, e, cap, f, d, 0,
+                          True, bf, train_calls=2 * L),  # w_in, w_gate dx
+             batched_case(torch, ops, ref, gen, moe.name, e, cap, d, f, 0,
+                          True, bf, train_calls=L)]      # w_out dx
+    return {"packed_matmul": {"dx": {q.name: width_summary(
+                dx, "calls_per_train_step")}, "cases": dx + heads},
+            "packed_matmul_batched": {"dx": {moe.name: width_summary(
+                banks, "calls_per_train_step")}, "cases": banks},
+            **{k: {"cases": [moment_case(torch, ops, ref, gen, qwen, k)]}
+               for k in ("pack", "unpack")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: packed-master and dense training at full width
+# ---------------------------------------------------------------------------
+
+def train_launches(cfg, masters, n_planned: int, t: int, packed: bool):
+    """Kernel launches of one train step and its staleness probe, by the
+    code of the path. Packed-master: the forward's packed products (the
+    decode body's, ``tick_products``, with encdec's cross wk / wv and
+    encoder, as ``prefill_launches`` counts them, and one head a loss
+    chunk) and as many dx products, each in the other orientation (so
+    the transposed count is the forward's total); six bank products a
+    MoE layer (three forward, three dx); one embedding gather; per
+    rank >= 2 leaf and row chunk (``optim.row_chunks``) AdamW's two
+    moment decodes and encodes, the staleness probe's encode and two
+    decodes; per planned leaf one re-encode. Dense: the moments alone."""
+    from repro_torch.core.tensor_store import tree_leaves
+    from repro_torch.optim import row_chunks
+
+    shapes = [tuple(p.shape) for p in tree_leaves(masters) if p.ndim >= 2]
+    chunks = sum(len(row_chunks(sh)) for sh in shapes)
+    out = dict.fromkeys(("packed_matmul", "packed_matmul_transposed", "pack",
+                         "kv_decode", "take_rows", "packed_matmul_batched",
+                         "paged_attention", "unpack", "convert",
+                         "truncate"), 0)
+    out["pack"], out["unpack"] = 2 * chunks, 2 * chunks
+    if not packed:
+        return out
+    assert n_planned == len(shapes), (n_planned, len(shapes))
+    fwd = body_products(cfg) + t // min(512, t)
+    out.update(packed_matmul=2 * fwd, packed_matmul_transposed=fwd,
+               take_rows=1, pack=3 * chunks + n_planned,
+               unpack=4 * chunks, packed_matmul_batched=(
+                   6 * cfg.n_layers if cfg.family == "moe" else 0))
+    return out
+
+
+def train_phase(torch, ops, cfg):
+    """Train ``cfg`` at full width (depth TRAIN_LAYERS) on the card through
+    the port's Trainer: TRAIN_STEPS packed-master steps (repack_every 1,
+    log_every 1) and as many dense steps from the same seed, B = 2,
+    T = 512 (whisper 256), lr 1e-3, bf16 weights and activations, AF16
+    codes and moments. The counters are zeroed just before each run and
+    read just after: every step's launches (the Trainer's
+    ``step_launches``) must be ``train_launches``, and the run's the
+    init's encodes plus the steps'. Held: packed losses within
+    TRAIN_LOSS_RTOL of dense at every step, staleness 0.0 after each
+    repack, the final ``train.metrics`` event's keys exactly
+    ``TRAIN_FINAL_KEYS``, finite losses. Prints per run the seconds of
+    each step to a device sync, tokens/s, peak memory, the losses, the
+    staleness, the weight-read bytes, the launches of a step and, for
+    the matmul kernels and take_rows, the event time around their calls
+    over the run beside their bound (``kernel_calls``: not a device
+    time where the stream idled).
+    Returns {mode: launches of the run}."""
+    from repro_torch import obs
+    from repro_torch.core.tensor_store import tree_leaves
+    from repro_torch.train import Trainer, TrainConfig
+
+    small = dataclasses.replace(
+        cfg, n_layers=TRAIN_LAYERS.get(cfg.name, cfg.n_layers))
+    t = WHISPER_T if cfg.family == "encdec" else PREFILL_T
+    runs, counts = {}, {}
+    for mode in ("packed", "dense"):
+        tc = TrainConfig(steps=TRAIN_STEPS, seq_len=t,
+                         global_batch=PREFILL_B, lr=1e-3, log_every=1,
+                         repack_every=1, pack_params=mode == "packed")
+        tracer = obs.Tracer()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = Trainer(small, tc, tracer=tracer)
+        if small.family == "encdec":
+            # random frames (seeded; the same in both runs): the
+            # Trainer's zero frames, the reference's stub, make every
+            # activation of the encoder zero, where each rms_norm's
+            # gradient is 1/sqrt(eps); through 12 layers that overflows
+            # f32 and the encoder's gradients are NaN, in the reference
+            # too (ROADMAP Queue C)
+            frames = torch.randn(
+                (PREFILL_B, small.encoder_seq, small.d_model),
+                generator=torch.Generator(device="cuda").manual_seed(5),
+                device="cuda")
+            tr._extra_inputs = lambda b: {"frames": frames}
+        with kernel_calls(torch, ops) as kernel_events:
+            m = tr.run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[mode] = ops.launch_counts()
+        n_planned = len(tr.plan.float_bits) if tr.plan else 0
+        masters = tr.state["params"]
+        n2d = sum(p.ndim >= 2 for p in tree_leaves(masters))
+        step = train_launches(small, masters, n_planned, t, mode == "packed")
+        init = dict.fromkeys(step, 0)
+        init["pack"] = 2 * n2d + n_planned    # zero moments, first encode
+        final = tracer.events("train.metrics")[-1]["attrs"]
+        steps_s = m["step_times"]
+        runs[mode] = {
+            "model": small.name, "layers": small.n_layers,
+            "batch": [PREFILL_B, t], "losses": m["losses"],
+            "step_s": steps_s,
+            "tokens_per_s": PREFILL_B * t * (len(steps_s) - 1)
+            / sum(steps_s[1:]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "run_s": wall, "staleness": [s for _, s in m["staleness"]],
+            "weight_read_bytes_fused": final["weight_read_bytes_fused"],
+            "weight_read_bytes_dense": final["weight_read_bytes_dense"],
+            "kernel_events_per_run": kernel_events(),
+            "launches_per_step": m["step_launches"][-1],
+            "launches_expected": step, "launches_run": counts[mode]}
+        log("train: " + json.dumps(runs[mode]))
+        if set(final) != obs.TRAIN_FINAL_KEYS:
+            raise AssertionError(f"{small.name} {mode}: train.metrics keys "
+                                 f"{sorted(final)}")
+        if not all(math.isfinite(x) for x in m["losses"]):
+            raise AssertionError(f"{small.name} {mode}: losses {m['losses']}")
+        for i, got in enumerate(m["step_launches"]):
+            if got != step:
+                raise AssertionError(f"{small.name} {mode} step {i}: "
+                                     f"launches {got} != path {step}")
+        total = {k: init[k] + TRAIN_STEPS * step[k] for k in step}
+        if counts[mode] != total:
+            raise AssertionError(f"{small.name} {mode}: run launches "
+                                 f"{counts[mode]} != {total}")
+        for name, n in step.items():
+            if n and not counts[mode][name]:
+                raise AssertionError(f"{name} never launched on the "
+                                     f"{small.name} {mode} train path")
+        del tr, masters
+    packed, dense = runs["packed"], runs["dense"]
+    if packed["staleness"] != [0.0] * TRAIN_STEPS:
+        raise AssertionError(f"{small.name}: staleness after each repack "
+                             f"{packed['staleness']}")
+    rel = [abs(p - d) / abs(d) for p, d in zip(packed["losses"],
+                                                dense["losses"])]
+    log(f"train: {small.name} packed-master losses {packed['losses']} "
+        f"against dense {dense['losses']}: max relative difference "
+        f"{max(rel):.3g} (tol {TRAIN_LOSS_RTOL}); weight reads a step "
+        f"{packed['weight_read_bytes_fused'] / (2 * TRAIN_STEPS) / 1e9:.3f}"
+        f" GB packed against "
+        f"{dense['weight_read_bytes_dense'] / (2 * TRAIN_STEPS) / 1e9:.3f}"
+        " GB dense per pass")
+    if max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{small.name}: packed-master losses "
+                             f"{packed['losses']} not within "
+                             f"{TRAIN_LOSS_RTOL} of {dense['losses']}")
+    torch.cuda.empty_cache()
+    return counts, runs
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -1977,6 +2254,76 @@ def parity(torch, np, cfg):
         f"max abs logit err {worst:.3g} (tol 1e-3), argmax equal; prefill "
         f"of {PARITY_T} tokens: max abs logit err {prefill_err:.3g}, argmax "
         f"equal, loss {pc[1].item():.6g} err {loss_err:.3g} (tol 1e-3)"
+        f"{routing} ({time.perf_counter() - t0:.1f} s)")
+
+
+def train_parity(torch, np, cfg):
+    """One packed-master gradient of ``cfg`` cut to 2 layers (encdec's
+    encoder too) in f32, at full width, on the card (kernels) against
+    the CPU (plain versions), on the same AF16 codes and masters and one
+    sequence of PARITY_T tokens: the loss (within 1e-4 relative) and
+    every master's gradient (relative L2 within GRAD_RTOL); for the MoE
+    family also the routing choices that differ between the two."""
+    from repro_torch.core.compress import repacked_copy, uniform_plan
+    from repro_torch.core.tensor_store import (st_tree, tree_leaves,
+                                               tree_map_with_path, tree_to)
+    from repro_torch.models import blocks as B
+    from repro_torch.models.lm import LM
+    from repro_torch.train.loop import TrainConfig, _grad_loop
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                encoder_layers=min(cfg.encoder_layers, 2))
+    t0 = time.perf_counter()
+    lm = {"cuda": LM(small, device="cuda"), "cpu": LM(small, device="cpu")}
+    masters = lm["cuda"].init(torch.Generator(device="cuda").manual_seed(3))
+    packed = repacked_copy(masters, uniform_plan(masters, 16))
+    trees = {"cuda": (packed, masters),
+             "cpu": (tree_to(packed, "cpu"), tree_to(masters, "cpu"))}
+    batch = prefill_batch(torch, small, torch.Generator().manual_seed(4), 1,
+                          PARITY_T)
+    choices = {"cuda": [], "cpu": []}
+    route = B.route
+
+    def recording_route(p, xf, c):
+        out = route(p, xf, c)
+        choices[xf.device.type].append(out[1].cpu())
+        return out
+
+    out = {}
+    B.route = recording_route
+    try:
+        for dev, (pk, ms) in trees.items():
+            for leaf in tree_leaves(ms):
+                leaf.requires_grad_(True)
+            loss, grads = _grad_loop(
+                lambda m, b, pk=pk, dev=dev: lm[dev].loss(st_tree(pk, m), b),
+                ms, {k: v.to(dev) for k, v in batch.items()}, TrainConfig())
+            out[dev] = (loss.item(), tree_map_with_path(
+                lambda _, g: g.detach().cpu(), grads))
+            del grads
+    finally:
+        B.route = route
+    rels = []
+    tree_map_with_path(lambda path, g, c: rels.append((
+        ((g - c).norm() / c.norm().clamp(min=1e-30)).item(), path)),
+        out["cuda"][1], out["cpu"][1])
+    worst, leaves = max(rels)[0], len(rels)
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"{small.name} train parity: {max(rels)[1]} "
+                             f"gradient relative L2 {worst} > {GRAD_RTOL}")
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if not math.isfinite(out["cuda"][0]) or loss_rel > 1e-4:
+        raise AssertionError(f"{small.name} train parity: loss "
+                             f"{out['cuda'][0]} against {out['cpu'][0]}")
+    routing = ""
+    if small.family == "moe":
+        g, c = torch.cat(choices["cuda"]), torch.cat(choices["cpu"])
+        routing = (f"; routing choices differing card vs CPU: "
+                   f"{int((g != c).sum())} of {g.numel()}")
+    log(f"train parity: {small.name} {small.n_layers} layers f32, one "
+        f"packed-master gradient of {PARITY_T} tokens card vs CPU: loss "
+        f"{out['cpu'][0]:.6g} relative err {loss_rel:.3g}; {leaves} master "
+        f"gradients, worst relative L2 {worst:.3g} (tol {GRAD_RTOL})"
         f"{routing} ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -2336,6 +2683,8 @@ def main() -> int:
     standalone = check_unpack_convert(torch, ops, ref, gen, qwen)
     prefill_shapes = check_prefill_shapes(torch, F, ops, ref, gen, qwen,
                                           pali, moe)
+    train_shapes = check_train_shapes(torch, ops, ref, gen, qwen, whisper,
+                                      moe, pali)
     log(f"kernels checked ({time.perf_counter() - t_start:.0f} s so far)")
 
     launches = {}                    # drain -> kernel -> launches
@@ -2395,15 +2744,23 @@ def main() -> int:
     for name, (counts, _) in prefill_runs.items():
         launches[name + " prefill+loss"] = counts
     log(f"served and prefilled ({time.perf_counter() - t_start:.0f} s so far)")
+    train_runs = {}                  # model -> (launches, numbers) by mode
+    for cfg in (qwen, moe, whisper):
+        train_runs[cfg.name] = train_phase(torch, ops, cfg)
+        for mode, counts in train_runs[cfg.name][0].items():
+            launches[f"{cfg.name} train {mode}"] = counts
+    log(f"trained ({time.perf_counter() - t_start:.0f} s so far)")
     for cfg in (qwen, moe, *fams):
         parity(torch, np, cfg)
+    for cfg in (qwen, moe, whisper):
+        train_parity(torch, np, cfg)
     paged_parity(torch, np, qwen)
     speculative_parity(torch, np, qwen)
     window_parity(torch, np, fams[-1])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if name in standalone:       # on no model path: one call's numbers
+        if name in standalone:       # on no serving path: one call's numbers
             r, per_tick = standalone[name], {}
             timing = (f"one call at ({qwen.d_model}, {qwen.d_ff}), "
                       f"{qwen.name}'s w_up")
@@ -2435,6 +2792,15 @@ def main() -> int:
                 m: dict(rm[name]["transposed_head"], launches=heads[m])
                 for m, rm in results.items()
                 if "transposed_head" in rm.get(name, {})}
+        if name in train_shapes or name == "take_rows":    # training
+            kernels[-1]["train"] = dict(
+                train_shapes.get(name, {}),
+                launches_per_step={
+                    f"{m} {mode}": runs[mode]["launches_per_step"][name]
+                    for m, (_, runs) in train_runs.items() for mode in runs},
+                launches_by_run={f"{m} {mode}": c[name]
+                                 for m, (cs, _) in train_runs.items()
+                                 for mode, c in cs.items()})
         if name in prefill_shapes:   # at the rows the prefill gives it
             kernels[-1]["prefill"] = dict(
                 prefill_shapes[name],

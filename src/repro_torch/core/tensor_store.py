@@ -2,9 +2,11 @@
 
 Port of ``repro.core.tensor_store``. A ``PackedTensor`` holds a logical
 float or integer tensor packed along its last axis at a fixed width, its
-words in an int32 tensor. Parameter trees are nested dicts (and lists or
-tuples) whose leaves are tensors or ``PackedTensor``s; the small tree
-helpers here take the place of JAX's pytree utilities.
+words in an int32 tensor. An ``STWeight`` pairs one with its dense
+master for packed-master training. Parameter trees are nested dicts (and
+lists or tuples) whose leaves are tensors, ``PackedTensor``s or
+``STWeight``s; the small tree helpers here take the place of JAX's
+pytree utilities and treat each of those as one leaf.
 """
 from __future__ import annotations
 
@@ -77,6 +79,48 @@ def is_packed(x) -> bool:
     return isinstance(x, PackedTensor)
 
 
+@dataclasses.dataclass
+class STWeight:
+    """A straight-through training weight: packed codes + dense master.
+
+    The forward computes from ``packed`` (the deployed codes, what
+    serving streams); gradients flow to ``master``, the dense copy the
+    optimizer owns. ``models.layers`` dispatches it wherever a weight
+    can appear: the kernel paths through ``torch.autograd.Function``s
+    whose dW comes from residuals alone, the materialized paths (norms,
+    the conv and the recurrent diagonals) through the straight-through
+    decode ``unpack(packed) + (master - master.detach())``."""
+
+    packed: PackedTensor
+    master: torch.Tensor
+
+    @property
+    def logical_shape(self) -> Tuple[int, ...]:
+        return self.packed.logical_shape
+
+    def layer(self, i: int) -> "STWeight":
+        """Slice ``i`` of the leading axis; the master's slice is a
+        differentiable view, so a layer's gradient reaches the stack."""
+        return STWeight(self.packed.layer(i), self.master[i])
+
+    def to(self, device) -> "STWeight":
+        return STWeight(self.packed.to(device), self.master.to(device))
+
+
+def is_st(x) -> bool:
+    return isinstance(x, STWeight)
+
+
+def st_tree(packed_tree: Any, master_tree: Any) -> Any:
+    """Zip a (partially) packed tree with its dense masters: every
+    ``PackedTensor`` leaf pairs into an ``STWeight``; unplanned leaves
+    come from the master tree (the packed tree's dense mirrors are
+    carried only so the two trees stay congruent)."""
+    return tree_map_with_path(
+        lambda _, pk, m: STWeight(pk, m) if is_packed(pk) else m,
+        packed_tree, master_tree)
+
+
 # -- the Value Truncator path -------------------------------------------------
 def pack_tensor(x: torch.Tensor, bits: int, kind: Optional[str] = None,
                 signed: bool = True,
@@ -129,15 +173,20 @@ def repack_tensor(pt: PackedTensor, bits: int) -> PackedTensor:
 # Parameter trees: nested dicts / lists / tuples of tensors and PackedTensors
 # ---------------------------------------------------------------------------
 
-def tree_map_with_path(fn: Callable[[Tuple[Any, ...], Any], Any], tree: Any,
+def tree_map_with_path(fn: Callable[..., Any], tree: Any, *rest: Any,
                        path: Tuple[Any, ...] = ()) -> Any:
+    """``fn(path, leaf, *leaves of rest)`` over ``tree``'s leaves; the
+    trees of ``rest`` have ``tree``'s structure (they may hold more
+    keys)."""
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, path + (k,))
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (k,))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+        return type(tree)(tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                             path=path + (i,))
                           for i, v in enumerate(tree))
-    return fn(path, tree)
+    return fn(path, tree, *rest)
 
 
 def tree_leaves(tree: Any):
@@ -152,7 +201,8 @@ def tree_leaves(tree: Any):
 
 
 def tree_to(tree: Any, device) -> Any:
-    """Every tensor and PackedTensor leaf moved to ``device``."""
+    """Every tensor, PackedTensor and STWeight leaf moved to
+    ``device``."""
     return tree_map_with_path(
         lambda _, leaf: leaf.to(device) if hasattr(leaf, "to") else leaf,
         tree)

@@ -1,10 +1,11 @@
 """Kernel dispatch by tensor device: CUDA tensors go to the hand-written
 kernels, CPU tensors to the plain PyTorch versions in ``kernels.ref``.
 
-Port of ``repro/kernels/ops.py`` for the kernels of the serving path
-and the materialized ``unpack``, plus ``convert``/``truncate`` entries
-for the Value Converter and Truncator lanes (the reference calls those
-kernels directly). The op and path names of every ``DispatchRecord``
+Port of ``repro/kernels/ops.py`` for the kernels of the serving and
+training paths (with ``packed_matmul_dw``, training's dW, which has no
+kernel in either package) and the materialized ``unpack``, plus
+``convert``/``truncate`` entries for the Value Converter and Truncator
+lanes (the reference calls those kernels directly). The op and path names of every ``DispatchRecord``
 are the reference's. The reference records once per traced program; the port
 runs eagerly, so it keeps each distinct record once (a dict used as an
 ordered set). The per-call count is the wrapper's launch counter. A CUDA
@@ -154,6 +155,26 @@ def packed_matmul_batched(x: torch.Tensor, w_packed: torch.Tensor, bits: int,
         return _packed_matmul_batched.packed_matmul_batched(
             x.contiguous(), w_packed, bits, n, transpose=transpose)
     return _ref.packed_matmul_batched_ref(x, w_packed, bits, n, transpose)
+
+
+def packed_matmul_dw(x: torch.Tensor, g: torch.Tensor,
+                     transpose: bool = False,
+                     batched: bool = False) -> torch.Tensor:
+    """Weight cotangent of the fused matmul, f32: xᵀ g (gᵀ x for the
+    transposed orientation; per expert with ``batched``), from the
+    residuals alone, never reading or decoding W. The reference has no
+    Pallas kernel for it (a plain contraction, ``kernels/ops.py:186``),
+    and neither does the port: one ``torch.matmul`` on the operands
+    viewed as 2-D. On the card, bf16 x and g multiply in TF32, which
+    holds bf16 exactly, so only the f32 summation order differs."""
+    if x.is_cuda and x.dtype == g.dtype == torch.bfloat16:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return _ref.packed_matmul_dw_ref(x, g, transpose, batched)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return _ref.packed_matmul_dw_ref(x, g, transpose, batched)
 
 
 def kv_decode(q: torch.Tensor, k_packed: torch.Tensor, v_packed: torch.Tensor,

@@ -138,6 +138,26 @@ def packed_matmul_batched_ref(x: torch.Tensor, w_packed: torch.Tensor,
     return torch.einsum("eck,ekn->ecn", x.float(), w)
 
 
+def packed_matmul_dw_ref(x: torch.Tensor, g: torch.Tensor,
+                         transpose: bool = False,
+                         batched: bool = False) -> torch.Tensor:
+    """Weight cotangent of the fused matmul from its residuals alone, in
+    f32; W is never read. Normal orientation (out = x @ W, W (K, N)):
+    dW = xᵀ g, (K, N). Transposed (out = x @ Wᵀ, W (N, K)): dW = gᵀ x,
+    (N, K). x's and g's leading dims are summed over; with ``batched``
+    the leading axis is the expert axis and is kept: x (E, C, K),
+    g (E, C, N). Operands are viewed as 2-D (3-D when batched), so it
+    is one matmul."""
+    xf, gf = x.float(), g.float()
+    if batched:
+        a, b = (gf, xf) if transpose else (xf, gf)
+        return torch.bmm(a.transpose(1, 2), b)
+    xf = xf.reshape(-1, xf.shape[-1])
+    gf = gf.reshape(-1, gf.shape[-1])
+    a, b = (gf, xf) if transpose else (xf, gf)
+    return torch.matmul(a.t(), b)
+
+
 def _attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_len: Optional[torch.Tensor]) -> torch.Tensor:
     """One-token GQA attention of q (B, H, D) over float rows K, V

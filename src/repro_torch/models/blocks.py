@@ -8,14 +8,17 @@ family's (groups, per group) stacks; the reference stacks per-layer
 inits with ``vmap``); ``*_apply`` (over a sequence (B, S, d): prefill
 and the loss) and ``*_decode`` (one token) take one layer's slice, and
 ``mlp_apply`` / ``moe_apply`` serve both. The recurrences of
-``mamba_apply`` and ``rglru_apply`` are loops over S in f32; the
-reference's checkpointed chunks serve a backward pass, which the port
-does not have yet (ROADMAP A13.2).
+``mamba_apply`` and ``rglru_apply`` are loops over S in f32, and
+autograd differentiates them as they stand (as it does the MoE router
+and its capacity drop). The reference checkpoints them in chunks and
+remats every layer; the port keeps its activations instead, which
+changes memory, not values.
 
 The leaves named in ``PLAIN_LEAVES`` are read whole through
 ``layers.unpack_maybe``, as the reference reads them: norm scales, the
 depthwise conv, the SSM and RG-LRU diagonals. No kernel takes them, so
-``LM.layer_params`` decodes a packed one once per parameter tree.
+``LM.layer_params`` decodes a packed one once per serving tree, and an
+``STWeight`` one straight through on every training step.
 """
 from __future__ import annotations
 

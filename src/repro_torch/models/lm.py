@@ -4,7 +4,7 @@
 Port of ``repro.models.lm.LM``:
 
   * ``init(gen)``                          -> params (stacked (L, ...) leaves)
-  * ``loss(params, batch, s_chunk)``       -> scalar LM loss (forward only)
+  * ``loss(params, batch, s_chunk)``       -> scalar LM loss (differentiable)
   * ``prefill(params, batch)``             -> (last-position logits, {})
   * ``input_specs(shape)``                 -> (shape, dtype) of every input
   * ``init_decode_state(batch, seq_len)``  -> zeroed per-slot decode state
@@ -66,7 +66,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.core.tensor_store import is_packed, tree_map_with_path
+from repro_torch.core.tensor_store import (is_packed, is_st, tree_leaves,
+                                           tree_map_with_path)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -83,9 +84,19 @@ class Refused(ValueError):
 
 
 def layer_slice(tree: Dict, i: int) -> Dict:
-    """Layer ``i`` of a stacked (L, ...) parameter tree."""
+    """Layer ``i`` of a stacked (L, ...) parameter tree; an ``STWeight``'s
+    master slice is a view, so a layer's gradient reaches the stack."""
     return tree_map_with_path(
-        lambda _, leaf: leaf.layer(i) if is_packed(leaf) else leaf[i], tree)
+        lambda _, leaf: (leaf.layer(i) if is_packed(leaf) or is_st(leaf)
+                         else leaf[i]), tree)
+
+
+def _trainable(params: Dict) -> bool:
+    """True when the tree carries ``STWeight``s or tensors that require
+    grad: a training tree, whose views hold autograd graph and whose
+    masters change in place between steps."""
+    return any(is_st(leaf) or getattr(leaf, "requires_grad", False)
+               for leaf in tree_leaves(params))
 
 
 def _cpu_only(t: torch.Tensor, name: str) -> None:
@@ -485,26 +496,30 @@ class LM:
         return views
 
     def _views_of(self, params: Dict) -> Tuple[Dict, List[Dict], List[Dict]]:
-        """(params, decoder views, encoder views), built once per
-        parameter tree (the tree is read-only while it serves): stacked
-        leaves sliced (a stacked (L, E, K, N) expert bank gives a 3-D
-        bank per layer), and the packed leaves no kernel takes
-        (``blocks.PLAIN_LEAVES``: norm scales, conv, SSM and RG-LRU
-        diagonals, which the reference decodes on every step) decoded
-        here once, with the plain decode."""
-        if self._views is None or self._views[0] is not params:
-            def decode_plain(path, leaf):
-                if is_packed(leaf) and path[-1] in B.PLAIN_LEAVES:
-                    return L.unpack_maybe(leaf)
-                return leaf
-            def decoded(views):
-                return [tree_map_with_path(decode_plain, v) for v in views]
-            enc = [layer_slice(params["enc_blocks"], i)
-                   for i in range(self.cfg.encoder_layers)
-                   ] if "enc_blocks" in params else []
-            self._views = (params, decoded(self._layer_views(params)),
-                           decoded(enc))
-        return self._views
+        """(params, decoder views, encoder views): stacked leaves sliced
+        (a stacked (L, E, K, N) expert bank gives a 3-D bank per layer),
+        and the packed leaves no kernel takes (``blocks.PLAIN_LEAVES``:
+        norm scales, conv, SSM and RG-LRU diagonals, which the reference
+        decodes on every step) decoded with the plain decode. A serving
+        tree is read-only, so its views are built once and kept. A
+        training tree (``_trainable``) gets new views on every call and
+        none is kept: they would hold the last step's autograd graph and
+        a decode of masters since updated in place; its ``STWeight``
+        leaves decode straight through."""
+        if self._views is not None and self._views[0] is params:
+            return self._views
+        def decode_plain(path, leaf):
+            if (is_packed(leaf) or is_st(leaf)) and path[-1] in B.PLAIN_LEAVES:
+                return L.unpack_maybe(leaf)
+            return leaf
+        def decoded(views):
+            return [tree_map_with_path(decode_plain, v) for v in views]
+        enc = [layer_slice(params["enc_blocks"], i)
+               for i in range(self.cfg.encoder_layers)
+               ] if "enc_blocks" in params else []
+        views = (params, decoded(self._layer_views(params)), decoded(enc))
+        self._views = None if _trainable(params) else views
+        return views
 
     def layer_params(self, params: Dict) -> List[Dict]:
         """Every layer's parameters (``_layer_views``), once per tree

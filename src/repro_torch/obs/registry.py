@@ -1,8 +1,8 @@
-"""Counters and histograms with labeled series.
+"""Counters, gauges and histograms with labeled series.
 
 A small copy of ``repro.obs.registry`` (the port imports nothing of the
 reference package): Prometheus semantics and idempotent registration;
-snapshots and the text exposition are not ported yet (ROADMAP A14).
+snapshots and the text exposition are not ported yet (ROADMAP A14b).
 """
 from __future__ import annotations
 
@@ -35,6 +35,25 @@ class Counter(_Metric):
     def inc(self, value: float = 1.0, **labels: Any) -> None:
         if value < 0:
             raise ValueError(f"counter {self.name} cannot decrease")
+        key = _label_key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0) + value
+
+    def value(self, **labels: Any) -> float:
+        with self._lock:
+            return self._series.get(_label_key(labels), 0)
+
+
+class Gauge(_Metric):
+    """Last-write-wins sample (a loss, an occupancy, an EWMA)."""
+
+    kind = "gauge"
+
+    def set(self, value: float, **labels: Any) -> None:
+        with self._lock:
+            self._series[_label_key(labels)] = value
+
+    def inc(self, value: float = 1.0, **labels: Any) -> None:
         key = _label_key(labels)
         with self._lock:
             self._series[key] = self._series.get(key, 0) + value
@@ -85,6 +104,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, help: str = "") -> Counter:
         return self._register(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._register(Gauge, name, help)
 
     def histogram(self, name: str, help: str = "",
                   buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:

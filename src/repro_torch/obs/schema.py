@@ -1,5 +1,5 @@
-"""The serving snapshot key sets: a copy of the serving part of
-``repro.obs.schema``. The port's ``ServeEngine.metrics_snapshot()``
+"""The serving snapshot and training event key sets: a copy of those
+parts of ``repro.obs.schema``. The port's ``ServeEngine.metrics_snapshot()``
 emits exactly ``snapshot_keys(paged)`` and ``SpeculativeEngine``'s
 ``snapshot_keys(paged, speculative=True)`` (tests hold them to the
 reference's sets); ``run_until_drained`` adds ``DRAIN_EXTRA_KEYS``, and
@@ -47,6 +47,18 @@ SNAPSHOT_KEYS_SPECULATIVE = frozenset({
 })
 
 DRAIN_EXTRA_KEYS = frozenset({"wall_s"})
+
+#: required attrs of a ``train.step`` event (packed-master runs add
+#: ``packed_staleness`` at log_every boundaries)
+TRAIN_STEP_EVENT_KEYS = frozenset({"step", "loss", "step_time_s"})
+
+#: attrs of the final ``train.metrics`` event
+TRAIN_FINAL_KEYS = frozenset({
+    "steps_completed", "last_step", "final_loss", "mean_step_time_s",
+    "repacks", "straggler_events",
+    "weight_passes", "weight_read_bytes_fused", "weight_read_bytes_dense",
+    "fused_analytic_bytes_per_pass",
+})
 #: further drain extras when the adaptive controller is on
 DRAIN_EXTRA_KEYS_ADAPTIVE = frozenset({"adaptive", "retune_events"})
 
