@@ -45,7 +45,8 @@ Phases; any failure raises and the script exits non-zero:
    the eager composition it replaced (a cast, a pack and index writes
    per row), each with its host issue time.
 2b. unpack, convert and truncate, which no serving path calls (unpack
-   is on the training path: 2e, 3c), once: bit
+   is on the training path: 2e, 3c; convert and truncate on the
+   calibration's: 3d), once: bit
    for bit (tolerance 0, bit patterns compared, so -0.0 and NaN bits
    count) against their plain versions at qwen3-8b's w_up leaf (4096,
    12288) and a ragged (7, 1000), all 7 widths; convert also on every
@@ -145,6 +146,27 @@ Phases; any failure raises and the script exits non-zero:
    ``train.metrics`` event's keys exactly ``TRAIN_FINAL_KEYS``. Prints
    per run the step seconds to a device sync, tokens/s, peak memory,
    losses, staleness, weight-read bytes and a step's launches.
+3d. calibration at full width: qwen3-8b cut to 4 layers, random
+   weights from seed 0 (the engine's), calibrated through
+   ``core.calibrate`` at the launchers' defaults (loss_delta 0.05 nats
+   over 2 batches of B = 2, T = 16; max_seq_len 256). The search's
+   trials are recorded; the launch counters, zeroed just before and read
+   just after, must be one truncate and one convert (the tuner's round
+   trip) per leaf below AF32 in each trial and in each of the two
+   ``metric_at`` calls, and no other kernel; the plan must pass its
+   gate. Prints seconds to a device sync, peak memory, evaluations, the
+   plan's width histogram, metric and uniform metric, mean width and
+   footprint, the int widths, and truncate and convert's event time a
+   call. Each is held bit for bit to its plain version on the tuned
+   plan's leaves and timed at the three largest leaves beside its bound
+   and plain version (``calibrate`` in the kernels line). Then the
+   calibrated plan, and a hand-written plan cycling the leaves through
+   all seven widths (AF32 leaves stay plain), are served on the same
+   weights with phase 3's qwen3-8b traffic: every leaf at its plan
+   width, the drain's launches the path's (``plan_path_launches``;
+   unpack, convert and truncate at 0), and the drain's last decode call
+   replayed through the plain versions on the card, its logits within
+   PLAIN_LOGIT_TOL of their largest magnitude.
 4. cross-device parity, for each of the six models at 2 layers (the
    hybrid at 4: a group and a tail layer; whisper's encoder at 2) in
    f32: PARITY_STEPS decode_steps at full width on the card (kernels)
@@ -168,7 +190,11 @@ Phases; any failure raises and the script exits non-zero:
    full width, f32, over PARITY_T tokens, on the same AF16 codes and
    masters on the card and on the CPU: the loss within 1e-4 relative
    and every master's gradient within 1e-3 relative L2; deepseek's
-   differing routing choices counted.
+   differing routing choices counted. Last, qwen3-8b's reduced config
+   calibrated on the card and on the CPU from the same parameters and
+   batches: the same plan and evaluations, the losses and metrics within
+   CALIB_PARITY_RTOL of the loss, and no trial's metric within
+   CALIB_GATE_MARGIN of the gate (the smallest distance printed).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds every kernel's numbers. Without a card, or without the rest of the
@@ -206,6 +232,15 @@ PARITY_STEPS = 2                 # full-width decode steps held to the CPU
 # (BENCH_train_packed.json's loss_rtol); phase 4's gradient tolerance
 TRAIN_LAYERS = {"qwen3-8b": 4, "deepseek-moe-16b": 2}
 TRAIN_STEPS, TRAIN_LOSS_RTOL, GRAD_RTOL = 3, 1e-2, 1e-3
+# phase 3d: the calibration gate (loss_delta, nats; the launchers'
+# default); elements per chunk of the plain versions' bit checks; the
+# largest leaf whose plain versions are timed whole; a plan-served decode
+# call's logits against the plain versions, relative to their largest
+# magnitude. Phase 4: card-against-CPU calibration metrics, relative to
+# the loss, and the least distance of any trial's metric from the gate
+CALIB_GATE, CALIB_CHECK_CHUNK, CALIB_PLAIN_TIMED_MAX = 0.05, 2**25, 2**28
+PLAIN_LOGIT_TOL = 2e-2
+CALIB_PARITY_RTOL, CALIB_GATE_MARGIN = 1e-4, 5e-4
 # the qwen3-8b drains: a system prompt shared by every request, suffix
 # lengths from, to; the paged drain's page size
 SYSTEM_PROMPT, SUFFIXES, PAGE = 64, (8, 32), 16
@@ -1546,10 +1581,13 @@ def device_launches(torch, call):
 
 
 def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
-          paged: bool = False, params=None):
+          paged: bool = False, params=None, plan=None, label=""):
     """Drain ``prompts`` through a full-width engine (on ``params`` when
-    given); returns (launch counts, outputs, engine, the drain's
-    numbers)."""
+    given; packed at ``plan``'s per-leaf widths when given, ``label``
+    naming it, else uniformly); returns (launch counts, outputs, engine,
+    the drain's numbers). With a plan, the drain's last decode call is
+    also replayed through the plain versions on the card
+    (``decode_against_plain``)."""
     from repro_torch import obs
     from repro_torch.kernels import ops, ref
     from repro_torch.serving import ServeEngine
@@ -1559,10 +1597,10 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     tracer = obs.Tracer()
     eng = ServeEngine(cfg, max_seq_len=max_seq, max_slots=SLOTS,
                       pack_weights=True, tracer=tracer, params=params,
-                      paged=paged, kv_page_size=PAGE)
+                      paged=paged, kv_page_size=PAGE, plan=plan)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    mode = "paged" if paged else "dense"
+    mode = ("paged" if paged else "dense") + label
     log(f"serve: {cfg.name} {mode} KV, {cfg.n_layers} layers {cfg.dtype}, "
         f"weights {eng.weight_read_bytes / 1e9:.3f} GB packed, engine init "
         f"{init_s:.1f} s, peak memory "
@@ -1600,7 +1638,8 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     prefill = tracer.events("serve.prefill")
     positions = sum(r["attrs"]["chunk"] for r in prefill)
     ticks = stats["decode_calls"]
-    expect = path_launches(cfg, ticks, positions, paged)
+    expect = (path_launches(cfg, ticks, positions, paged) if plan is None
+              else plan_path_launches(cfg, plan, ticks, positions))
     res = {"model": cfg.name, "kv": mode, "requests": len(outs),
            "prompt_tokens": sum(len(p) for p in prompts),
            "tokens": stats["tokens"], "decode_ticks": ticks,
@@ -1624,6 +1663,9 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
                                   tracer.events("serve.h2d_table"))
     res["decode_step_issue_ms"] = issue
     res["decode_step_total_ms"] = total
+    if plan is not None:
+        res["plain_decode"] = decode_against_plain(torch, ops, ref, step,
+                                                   last)
     log("serve: " + json.dumps(res))
     # the drain's last decode call replayed (it writes the rows it wrote):
     # what it launches now, and with the KV append as the eager
@@ -1806,9 +1848,11 @@ def prefill_batch(torch, cfg, gen, b, t):
 
 
 @contextlib.contextmanager
-def kernel_calls(torch, ops):
-    """Inside, each call of packed_matmul, packed_matmul_batched and
-    take_rows is bracketed by two CUDA events on its stream (no sync).
+def kernel_calls(torch, ops, names=("packed_matmul", "packed_matmul_batched",
+                                    "take_rows")):
+    """Inside, each call of the ``names`` wrappers (by default
+    packed_matmul, packed_matmul_batched and take_rows; truncate and
+    convert too) is bracketed by two CUDA events on its stream (no sync).
     ``summarize()`` on the yielded list gives per kernel: calls,
     ``event_ms``, the sum of the ms between each call's events, and the
     bound of its calls: each input read once (a gather's distinct rows),
@@ -1818,9 +1862,7 @@ def kernel_calls(torch, ops):
     launch): ``event_ms`` is the kernel's device time only where the
     stream was busy, and otherwise more than it."""
     calls = []
-    wrapped = {"packed_matmul": ops.packed_matmul,
-               "packed_matmul_batched": ops.packed_matmul_batched,
-               "take_rows": ops.take_rows}
+    wrapped = {name: getattr(ops, name) for name in names}
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -1835,6 +1877,8 @@ def kernel_calls(torch, ops):
             if name == "take_rows":      # its distinct rows, after a sync
                 packed, idx = args[:2]
                 b = (idx, packed.shape[1] * 4, nbytes(idx, out))
+            elif name in ("truncate", "convert"):
+                b = bound(nbytes(args[0], out), 0.0)[0]
             else:
                 x, w, bits = args[:3]
                 b = bound(nbytes(x, w, out), 2.0 * out.numel() * x.shape[-1],
@@ -2149,6 +2193,293 @@ def train_phase(torch, ops, cfg):
                              f"{TRAIN_LOSS_RTOL} of {dense['losses']}")
     torch.cuda.empty_cache()
     return counts, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: calibration to a mixed-width plan, and serving it
+# ---------------------------------------------------------------------------
+
+# the dense family's packed products, by leaf (``tick_products``' order)
+DENSE_PRODUCT_LEAVES = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
+                        "blocks/attn/wo", "blocks/mlp/w_in",
+                        "blocks/mlp/w_gate", "blocks/mlp/w_out")
+
+
+def plan_path_launches(cfg, plan, ticks: int, positions: int):
+    """``path_launches`` of a dense-family drain whose weights ``plan``
+    packs leaf by leaf: a product whose leaf the plan leaves at AF32 (a
+    plain tensor) runs no packed_matmul, a plain head none either, and a
+    plain embedding table no take_rows."""
+    if cfg.family != "dense":
+        raise ValueError(f"plan_path_launches: dense family only, not "
+                         f"{cfg.family}")
+    expect = path_launches(cfg, ticks, positions)
+    widths = plan.float_bits
+
+    def plain(key):
+        return widths.get(key, 32) >= 32
+    bodies = ticks + positions
+    expect["packed_matmul"] -= bodies * cfg.n_layers * sum(
+        plain(k) for k in DENSE_PRODUCT_LEAVES)
+    if plain("lm_head"):
+        expect["packed_matmul"] -= ticks
+    if plain("embed"):
+        expect["take_rows"] = 0
+    return expect
+
+
+def clone_tree(torch, tree):
+    from repro_torch.core.tensor_store import tree_map_with_path
+    return tree_map_with_path(
+        lambda _, v: v.clone() if isinstance(v, torch.Tensor) else v, tree)
+
+
+@contextlib.contextmanager
+def plain_ops(ops, ref):
+    """Inside, every kernel wrapper of ``ops`` runs its plain version
+    (``kernels.ref``) on the card's tensors instead of its kernel."""
+    plain = {
+        "packed_matmul": lambda x, w, bits, n, transpose=False:
+            ref.packed_matmul_ref(x, w, bits, n, transpose),
+        "packed_matmul_batched": lambda x, w, bits, n, transpose=False:
+            ref.packed_matmul_batched_ref(x, w, bits, n, transpose),
+        "take_rows": ref.take_rows_ref,
+        "kv_decode": lambda q, k, v, kv_len, bits, d:
+            ref.kv_decode_ref(q, k, v, bits, d, kv_len),
+        "paged_attention": ref.paged_attention_ref,
+        "append_kv_rows": ref.append_kv_rows_ref,
+        "pack": ref.pack_ref, "unpack": ref.unpack_ref,
+        "convert": ref.convert_ref, "truncate": ref.truncate_ref}
+    kept = {name: getattr(ops, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in kept.items():
+            setattr(ops, name, fn)
+
+
+def decode_against_plain(torch, ops, ref, step, last):
+    """The drain's last decode call (``last``: its params, state, tokens)
+    replayed on clones of its state, through the kernels and through
+    their plain versions on the card: the logits within PLAIN_LOGIT_TOL
+    of the plain ones' largest magnitude (bf16 activations: the two
+    round their sums to bf16 in other orders, layer after layer)."""
+    params, state, toks = last
+    with torch.no_grad():
+        got = step(params, clone_tree(torch, state), toks)[0].float()
+        with plain_ops(ops, ref):
+            want = step(params, clone_tree(torch, state), toks)[0].float()
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(
+        want).all())
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    res = {"max_abs_err": err, "max_abs_logit": scale,
+           "tol": PLAIN_LOGIT_TOL * scale,
+           "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "rows": int(got.shape[0] * got.shape[1])}
+    if err > PLAIN_LOGIT_TOL * scale:
+        raise AssertionError(f"decode call against the plain versions: {res}")
+    return res
+
+
+def leaf_widths(torch, params):
+    """path -> packed width (32 for a plain tensor) of every leaf."""
+    from repro_torch.core.compress import path_str
+    from repro_torch.core.tensor_store import is_packed, tree_map_with_path
+    got = {}
+
+    def visit(path, leaf):
+        got[path_str(path)] = leaf.bits if is_packed(leaf) else 32
+        return leaf
+    tree_map_with_path(visit, params)
+    return got
+
+
+def _same_bits_chunked(torch, got, plain, x, bits, what):
+    """``got`` (a kernel's output over all of ``x``) bit for bit against
+    ``plain`` on chunks of ``x``: the plain versions' temporaries take
+    over a hundred bytes an element."""
+    flat_x, flat_got = x.reshape(-1), got.reshape(-1)
+    for i in range(0, flat_x.numel(), CALIB_CHECK_CHUNK):
+        part = slice(i, i + CALIB_CHECK_CHUNK)
+        _expect_same_bits(torch, flat_got[part], plain(flat_x[part], bits),
+                          what)
+
+
+def calibrate_phase(torch, np, ops, ref, cfg):
+    """Calibrate ``cfg`` at full width, cut to TRAIN_LAYERS, on the card
+    (the launcher's defaults: loss_delta 0.05 nats over 2 batches of
+    B = 2, T = 16 from the port's token stream, max_seq_len MAX_SEQ,
+    random weights from seed 0 as the engine makes them), then serve the
+    plan and a hand-written plan that cycles the leaves through all
+    seven widths. The search's trials are recorded as it makes them;
+    the launch counters, zeroed just before the calibration and read
+    just after, must be one truncate and one convert per leaf below
+    AF32 in every trial and in each of the two ``metric_at`` calls (the
+    tuned and the uniform widths), and no other kernel. Each kernel is
+    then held bit for bit to its plain version on the tuned plan's
+    leaves, and timed at the largest leaves' shapes beside its plain
+    version and bound. Returns {"launches": by run, "kernels":
+    truncate/convert's numbers}."""
+    from collections import Counter
+
+    from repro_torch.core import precision_tuning
+    from repro_torch.core.calibrate import calibrate, float_leaves
+    from repro_torch.core.compress import CompressionPlan
+    from repro_torch.core.formats import FLOAT_LADDER
+    from repro_torch.core.quality import QualitySpec
+    from repro_torch.models.lm import LM
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[cfg.name])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = LM(small, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    tensors = float_leaves(params)
+    trials = []
+    search = precision_tuning._search
+
+    def recording_search(keys, weight, acceptable, ladder, max_passes=2):
+        def judged(trial):
+            trials.append(dict(trial))
+            return acceptable(trial)
+        return search(keys, weight, judged, ladder, max_passes)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    precision_tuning._search = recording_search
+    try:
+        with kernel_calls(torch, ops, ("truncate", "convert")) as events:
+            res = calibrate(small, QualitySpec("loss_delta", CALIB_GATE),
+                            params=params, max_seq_len=MAX_SEQ)
+            torch.cuda.synchronize()
+    finally:
+        precision_tuning._search = search
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plan = res.plan
+    tuned = {k: plan.float_bits.get(k, 32) for k in tensors}
+    uniform = {k: small.resolved_weight_bits for k in tensors}
+    narrow = [sum(b < 32 for b in t.values())
+              for t in trials + [tuned, uniform]]
+    per_kernel = sum(narrow)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(truncate=per_kernel, convert=per_kernel)
+    kern = events()
+    hist = Counter(plan.float_bits.values())
+    numel = sum(v.numel() for v in tensors.values())
+    out = {"model": small.name, "layers": small.n_layers, "seconds": secs,
+           "peak_memory_gb": peak,
+           "quantized_f32_gb": numel * 4 / 1e9,
+           "params_gb": sum(v.numel() * v.element_size()
+                            for v in tensors.values()) / 1e9,
+           "summary": res.summary(), "tune_evals": res.tune_evals,
+           "width_histogram_leaves": {str(b): hist[b] for b in sorted(hist)},
+           "width_histogram_elements": {
+               str(b): sum(tensors[k].numel() for k, w in
+                           plan.float_bits.items() if w == b)
+               for b in sorted(hist)},
+           "int_bits": plan.int_bits, "trials": len(trials),
+           "launches": counts, "launches_expected": expect,
+           "event_ms_per_call": {
+               n: k["event_ms"] / k["calls"] for n, k in kern.items()},
+           "event_bound_ms_per_call": {
+               n: k["bound_ms"] / k["calls"] for n, k in kern.items()}}
+    log("calibrate: " + json.dumps(out))
+    if not res.accepted:
+        raise AssertionError(f"{small.name}: calibration missed its gate: "
+                             f"{res.summary()}")
+    if res.tune_evals != len(trials):
+        raise AssertionError(f"{small.name}: {res.tune_evals} evaluations, "
+                             f"{len(trials)} trials recorded")
+    if counts != expect or not per_kernel:
+        raise AssertionError(f"{small.name} calibration: launch counts "
+                             f"{counts} != the search's {expect}")
+    if any(b not in FLOAT_LADDER for b in plan.float_bits.values()):
+        raise AssertionError(f"{small.name}: plan widths {plan.float_bits}")
+
+    # one trial's leaves (the tuned plan's), each kernel bit for bit
+    # against its plain version; then each timed at the largest leaves
+    t1 = time.perf_counter()
+    for key, bits in plan.float_bits.items():
+        x = tensors[key]
+        code = ops.truncate(x, bits)
+        _same_bits_chunked(torch, code, ref.truncate_ref, x, bits,
+                           f"truncate AF{bits} {key}")
+        _same_bits_chunked(torch, ops.convert(code, bits), ref.convert_ref,
+                           code, bits, f"convert AF{bits} {key}")
+        del code
+    check_s = time.perf_counter() - t1
+    cases = {"truncate": [], "convert": []}
+    for key in sorted(tensors, key=lambda k: -tensors[k].numel())[:3]:
+        x, bits = tensors[key], plan.float_bits.get(key, 16)
+        code = ops.truncate(x, bits)
+        plain_ok = x.numel() <= CALIB_PLAIN_TIMED_MAX
+        for name, operand, kernel, plain in (
+                ("truncate", x, ops.truncate, ref.truncate_ref),
+                ("convert", code, ops.convert, ref.convert_ref)):
+            ms, issue = time_ms(torch, [lambda: kernel(operand, bits)], 5)
+            nbytes = operand.numel() * (operand.element_size() + 4)
+            b_ms, b_by = bound(nbytes, 0.0)
+            rec = {"kernel": name, "leaf": key, "shape": list(x.shape),
+                   "dtype": str(operand.dtype).split(".")[-1], "bits": bits,
+                   "kernel_ms": ms, "host_issue_ms": issue,
+                   "plain_ms": (time_ms(torch, [lambda: plain(operand, bits)],
+                                        2)[0] if plain_ok else None),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms}
+            cases[name].append(rec)
+            log(json.dumps(rec))
+        del code
+        torch.cuda.empty_cache()
+    log(f"calibrate: {small.name} {small.n_layers} layers, {res.tune_evals} "
+        f"evaluations, plan {dict(hist)}; truncate and convert "
+        f"{per_kernel} launches each, as the search's trials imply, and "
+        f"bit-identical to their plain versions on the tuned leaves "
+        f"({check_s:.1f} s)")
+
+    launches = {f"{cfg.name} calibrate": counts}
+    kernels = {name: {
+        "calls_per_calibration": per_kernel, "trials": len(trials),
+        "event_ms_per_call": out["event_ms_per_call"][name],
+        "event_bound_ms_per_call": out["event_bound_ms_per_call"][name],
+        "event_timing": "CUDA events around each wrapper call in the "
+        "calibration, the stream not held: device time plus the host's "
+        "issue where the stream idled", "leaf_cases": cases[name]}
+        for name in cases}
+
+    # serve the calibrated plan, then the seven-width one, on the same
+    # weights (each engine packs its own copy of the tree)
+    prompts = shared_prefix_prompts(np, cfg)
+    keys = sorted(tensors)
+    seven = CompressionPlan(
+        float_bits={k: FLOAT_LADDER[i % len(FLOAT_LADDER)]
+                    for i, k in enumerate(keys)}, int_bits={})
+    for label, p in ((" calibrated plan", plan), (" seven-width plan",
+                                                  seven)):
+        counts, outs, eng, r = serve(torch, small, prompts, NEW_TOKENS,
+                                     MAX_SEQ, params=params, plan=p,
+                                     label=label)
+        widths = leaf_widths(torch, eng.params)
+        want = {k: p.float_bits.get(k, 32) for k in tensors}
+        got = {k: widths[k] for k in tensors}
+        if got != want:
+            raise AssertionError(f"{small.name}{label}: leaf widths {got} "
+                                 f"!= plan {want}")
+        log(f"serve: {small.name}{label}: every leaf at its plan width "
+            f"({dict(Counter(got.values()))}); decode call against the "
+            f"plain versions {json.dumps(r['plain_decode'])}")
+        launches[f"{cfg.name}{label}"] = counts
+        del eng
+        torch.cuda.empty_cache()
+    del params, tensors
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernels": kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -2560,6 +2891,63 @@ def window_parity(torch, np, cfg):
         f"identical ({time.perf_counter() - t0:.1f} s)")
 
 
+def calibrate_parity(torch, cfg):
+    """Calibrate ``cfg``'s reduced config (f32, 2 layers) on the card and
+    on the CPU from the same parameters (seed 0, made on the CPU) and the
+    same batches (the port's token stream, drawn on the CPU whatever the
+    device): the plans must be identical
+    (float and int widths) and ``tune_evals`` equal, ``ref_loss``,
+    ``metric`` and ``uniform_metric`` within CALIB_PARITY_RTOL of the
+    loss. Every trial's metric on both sides must lie further than
+    CALIB_GATE_MARGIN from the gate, or an identical plan could be
+    luck; the smallest distance is printed."""
+    from repro_torch.core.calibrate import calibrate
+    from repro_torch.core.quality import QualitySpec
+    from repro_torch.core.tensor_store import tree_to
+    from repro_torch.models.lm import LM
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(QualitySpec):
+        trials: list = dataclasses.field(default_factory=list,
+                                         compare=False)
+
+        def accepts(self, ref, out) -> bool:
+            self.trials.append(self.metric(ref, out))
+            return super().accepts(ref, out)
+
+    small = cfg.reduced()
+    params = LM(small, device="cpu").init(torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    res, specs = {}, {}
+    for device, p in (("cuda", tree_to(params, "cuda")), ("cpu", params)):
+        specs[device] = Recording("loss_delta", CALIB_GATE)
+        res[device] = calibrate(small, specs[device], params=p,
+                                max_seq_len=64, device=device)
+    g, c = res["cuda"], res["cpu"]
+    margin = min(abs(m - CALIB_GATE) for spec in specs.values()
+                 for m in spec.trials)
+    errs = {k: abs(getattr(g, k) - getattr(c, k)) for k in (
+        "ref_loss", "metric", "uniform_metric")}
+    log(f"calibrate parity: {small.name} {small.n_layers} layers f32, card "
+        f"vs CPU: plan {'identical' if g.plan == c.plan else 'DIFFERS'} "
+        f"({len(g.plan.float_bits)} float leaves, int widths "
+        f"{g.plan.int_bits}), tune_evals {g.tune_evals} / {c.tune_evals}; "
+        f"errors {json.dumps(errs)} (tol {CALIB_PARITY_RTOL} x loss "
+        f"{c.ref_loss:.6g}); smallest |trial metric - gate| {margin:.3g} "
+        f"over {len(specs['cuda'].trials)} + {len(specs['cpu'].trials)} "
+        f"trials (must exceed {CALIB_GATE_MARGIN}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if margin <= CALIB_GATE_MARGIN:
+        raise AssertionError(f"calibrate parity: a trial's metric lies "
+                             f"{margin} from the gate")
+    if g.plan.to_jsonable() != c.plan.to_jsonable() or (
+            g.tune_evals != c.tune_evals):
+        raise AssertionError(f"calibrate parity: card plan {g.plan} != CPU "
+                             f"plan {c.plan}")
+    if max(errs.values()) > CALIB_PARITY_RTOL * c.ref_loss:
+        raise AssertionError(f"calibrate parity: {errs}")
+
+
 def build_summary(log_text: str, kernel: str = "") -> str:
     """Registers, static shared memory and spills of the kernels the
     ``-Xptxas -v`` report names, or of those whose name holds
@@ -2750,6 +3138,10 @@ def main() -> int:
         for mode, counts in train_runs[cfg.name][0].items():
             launches[f"{cfg.name} train {mode}"] = counts
     log(f"trained ({time.perf_counter() - t_start:.0f} s so far)")
+    calib = calibrate_phase(torch, np, ops, ref, qwen)
+    launches.update(calib["launches"])
+    log(f"calibrated and served the plans "
+        f"({time.perf_counter() - t_start:.0f} s so far)")
     for cfg in (qwen, moe, *fams):
         parity(torch, np, cfg)
     for cfg in (qwen, moe, whisper):
@@ -2757,6 +3149,7 @@ def main() -> int:
     paged_parity(torch, np, qwen)
     speculative_parity(torch, np, qwen)
     window_parity(torch, np, fams[-1])
+    calibrate_parity(torch, qwen)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2801,6 +3194,8 @@ def main() -> int:
                 launches_by_run={f"{m} {mode}": c[name]
                                  for m, (cs, _) in train_runs.items()
                                  for mode, c in cs.items()})
+        if name in calib["kernels"]:  # the tuner's round trip
+            kernels[-1]["calibrate"] = calib["kernels"][name]
         if name in prefill_shapes:   # at the rows the prefill gives it
             kernels[-1]["prefill"] = dict(
                 prefill_shapes[name],

@@ -1,24 +1,30 @@
 """Compression plans at tensor granularity.
 
-Port of the deployment half of ``repro.core.compress``: the
-``CompressionPlan`` (per-leaf widths, versioned JSON codec),
-``uniform_plan`` (one Table 3 width for every float leaf of rank >= 2),
-``derive_plan`` (the speculative draft's plan, one step down the
-ladder), ``repack`` (re-encode a parameter tree at a plan's widths, in
-place) and ``repacked_copy`` (the same into fresh containers, leaving
-the source tree as it was). The kernel-granularity flow (range
-analysis, precision tuning, slice allocation) stays in the reference
-for now (ROADMAP A14).
+Port of the tensor-granularity half of ``repro.core.compress``: the
+``CompressionPlan`` (per-leaf widths, versioned JSON codec, footprint
+and mean-width accounting), ``plan_tensors`` (a plan from the
+quality-gated tensor tuning and integer ranges), ``uniform_plan`` (one
+Table 3 width for every float leaf of rank >= 2), ``derive_plan`` (the
+speculative draft's plan, one step down the ladder), ``repack``
+(re-encode a parameter tree at a plan's widths, in place) and
+``repacked_copy`` (the same into fresh containers, leaving the source
+tree as it was). A whole model's plan comes from ``core.calibrate``.
+The kernel-granularity flow (``compress_kernel``: a traced kernel's
+values tuned, ranged and allocated to register slices) is not ported
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.formats import ladder_snap, round_bits_to_slice
+from repro_torch.core.precision_tuning import tune_tensors
+from repro_torch.core.quality import QualitySpec
+from repro_torch.core.range_analysis import Interval
 from repro_torch.core.tensor_store import (is_packed, pack_tensor,
                                            repack_tensor, tree_map_with_path)
 
@@ -47,6 +53,35 @@ class CompressionPlan:
             bits, signed = self.int_bits[key]
             return round_bits_to_slice(bits), signed
         return None
+
+    def footprint_ratio(self, tensors: Dict[str, torch.Tensor]) -> float:
+        """Packed bytes / f32 bytes over the planned tensors."""
+        num = den = 0.0
+        for k, v in tensors.items():
+            n = float(max(v.numel(), 1))
+            if k in self.float_bits:
+                bits = self.float_bits[k]
+            elif k in self.int_bits:
+                bits = round_bits_to_slice(self.int_bits[k][0])
+            else:
+                bits = 32
+            num += n * bits
+            den += n * 32
+        return num / max(den, 1.0)
+
+    def mean_float_bits(self, sizes: Optional[Dict[str, int]] = None
+                        ) -> float:
+        """Mean width over the float leaves: weighted by element count
+        when ``sizes`` are given (one large embedding at AF8 outweighs a
+        dozen small leaves at AF24), a plain mean otherwise; 32.0 for an
+        empty plan."""
+        if not self.float_bits:
+            return 32.0
+        if sizes:
+            num = sum(b * sizes.get(k, 1) for k, b in self.float_bits.items())
+            den = sum(sizes.get(k, 1) for k in self.float_bits)
+            return num / max(den, 1)
+        return sum(self.float_bits.values()) / len(self.float_bits)
 
     def kv_layer_widths(self, n_layers: int, default: int) -> Tuple[int, ...]:
         """Per-layer KV widths: ``kv_bits["kv/layer_i"]`` where the plan
@@ -93,6 +128,33 @@ class CompressionPlan:
 
 def path_str(path: Tuple[Any, ...]) -> str:
     return "/".join(str(p) for p in path)
+
+
+def plan_tensors(
+    apply_fn: Callable[[Dict[str, torch.Tensor]], Any],
+    tensors: Dict[str, torch.Tensor],
+    quality: QualitySpec,
+    int_ranges: Optional[Dict[str, Interval]] = None,
+) -> CompressionPlan:
+    """A tensor-level plan: float tensors tuned (``tune_tensors``),
+    integer tensors at the widths of ``int_ranges`` (else of their
+    values' range)."""
+    tuned = tune_tensors(apply_fn, tensors, quality)
+    int_bits: Dict[str, Tuple[int, bool]] = {}
+    for k, v in tensors.items():
+        if v.is_floating_point() or v.is_complex() or v.dtype == torch.bool:
+            continue
+        itv = (int_ranges or {}).get(k)
+        if itv is None:
+            itv = Interval(float(v.min()), float(v.max()))
+        b = itv.bits()
+        if b:
+            int_bits[k] = b
+    return CompressionPlan(
+        float_bits={k: b for k, b in tuned.formats.items() if b < 32},
+        int_bits=int_bits,
+        tune_evals=tuned.evaluations,
+    )
 
 
 def uniform_plan(tree: Any, bits: int, min_ndim: int = 2) -> CompressionPlan:

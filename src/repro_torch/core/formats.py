@@ -73,6 +73,20 @@ def round_bits_to_slice(bits: int) -> int:
     return slices_for_bits(bits) * SLICE_BITS
 
 
+def int_bits_needed(lo: int, hi: int) -> Tuple[int, bool]:
+    """Minimal (bits, signed) for every integer in [lo, hi] (the last
+    step of the range analysis, Fig. 8d): unsigned when lo >= 0, else
+    two's complement."""
+    if lo > hi:
+        raise ValueError(f"empty range [{lo}, {hi}]")
+    if lo >= 0:
+        return max(int(hi).bit_length(), 1), False
+    b = 1
+    while not (-(1 << (b - 1)) <= lo and hi <= (1 << (b - 1)) - 1):
+        b += 1
+    return b, True
+
+
 def _srl(u: torch.Tensor, k: int) -> torch.Tensor:
     """Logical right shift of int32 lanes by a constant ``k``."""
     if k == 0:

@@ -4,9 +4,12 @@
         [--reduced] [--requests 16] [--max-new-tokens 8] \
         [--max-seq-len 64] [--slots 4] [--device cpu] [--kv-bits 8] \
         [--paged] [--kv-page-size 16] [--kv-pool-pages N] \
-        [--paged-attn | --gather-attn] [--plan plan.json] \
-        [--speculative 4] [--draft-bits 12] [--adaptive] \
-        [--sample] [--sample-seed N]
+        [--paged-attn | --gather-attn] \
+        [--plan plan.json | --calibrate] [--save-plan plan.json] \
+        [--quality-kind loss_delta] [--quality-threshold 0.05] \
+        [--calib-batches 2] [--speculative 4] [--draft-bits 12] \
+        [--adaptive] [--sample] [--sample-seed N] \
+        [--metrics-out metrics.jsonl] [--metrics-interval N]
 
 ``--arch`` names any config of ``repro_torch.configs``: the dense and
 MoE families, paligemma_3b (vlm), whisper_small (encdec),
@@ -32,7 +35,16 @@ controller retune (width, K) from live acceptance. ``--sample`` samples
 (rejection sampling under speculation) instead of taking the argmax,
 reproducibly under ``--sample-seed``. ``--plan`` packs the weights at a
 per-leaf plan file (the reference's JSON); a plan with ``kv_bits``
-entries sets per-layer KV widths. ``--kv-bits`` sets the KV width.
+entries sets per-layer KV widths. ``--calibrate`` runs the calibration
+pass (``core.calibrate``) first, on the weights the engine then packs,
+gated by ``--quality-kind`` / ``--quality-threshold`` over
+``--calib-batches`` batches, and serves the tuned mixed-width plan;
+``--save-plan`` writes the served plan for later ``--plan`` runs.
+``--kv-bits`` sets the KV width. ``--metrics-out`` streams the spans,
+events and ``serve.metrics`` snapshots (every ``--metrics-interval``
+ticks, and at the drain's end) to a JSONL file, which
+``python -m repro_torch.obs.validate`` checks, and prints the metrics
+registry's summary at the end.
 """
 from __future__ import annotations
 
@@ -89,8 +101,27 @@ def main(argv=None) -> None:
                     help="sample tokens instead of the greedy argmax")
     ap.add_argument("--sample-seed", type=int, default=None,
                     help="pin the sampling nonce (reproducible drains)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="run the calibration pass first and serve the "
+                         "tuned mixed-width plan")
+    ap.add_argument("--save-plan", default=None, metavar="OUT_JSON",
+                    help="write the served plan (from --plan/--calibrate) "
+                         "to this file")
+    ap.add_argument("--quality-kind", default="loss_delta",
+                    choices=["loss_delta", "deviation"],
+                    help="--calibrate acceptance metric")
+    ap.add_argument("--quality-threshold", type=float, default=0.05,
+                    help="--calibrate acceptance threshold (nats / %%)")
+    ap.add_argument("--calib-batches", type=int, default=2)
+    ap.add_argument("--metrics-out", default=None, metavar="JSONL",
+                    help="stream structured telemetry (spans, events, "
+                         "serve.metrics snapshots) to this JSONL file")
+    ap.add_argument("--metrics-interval", type=int, default=0, metavar="N",
+                    help="emit a serve.metrics snapshot every N ticks "
+                         "(0: only the final one at drain)")
     args = ap.parse_args(argv)
 
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.compress import CompressionPlan
     from repro_torch.models.lm import Refused
@@ -102,13 +133,42 @@ def main(argv=None) -> None:
     if args.kv_bits:
         cfg = dataclasses.replace(cfg, compression=dataclasses.replace(
             cfg.compression, kv_bits=args.kv_bits))
-    plan = CompressionPlan.load(args.plan) if args.plan else None
+    plan = None
+    if args.plan and args.calibrate:
+        raise SystemExit("--plan and --calibrate are exclusive")
+    if args.plan:
+        plan = CompressionPlan.load(args.plan)
+        print(f"loaded plan {args.plan}: {len(plan.float_bits)} float "
+              f"leaves, {len(plan.int_bits)} int streams, "
+              f"{len(plan.kv_bits)} KV layers")
+    elif args.calibrate:
+        from repro_torch.core.calibrate import calibrate
+        from repro_torch.core.quality import QualitySpec
+        res = calibrate(
+            cfg, QualitySpec(args.quality_kind, args.quality_threshold),
+            n_batches=args.calib_batches, max_seq_len=args.max_seq_len,
+            device=args.device)
+        plan = res.plan
+        print(f"calibrated {cfg.name}: mean float bits "
+              f"{res.mean_float_bits:.1f} (uniform {res.uniform_bits}), "
+              f"{args.quality_kind}={res.metric:.4g} "
+              f"(gate {args.quality_threshold})")
+    if args.save_plan:
+        if plan is None:
+            raise SystemExit("--save-plan needs --plan or --calibrate")
+        plan.save(args.save_plan)
+        print(f"wrote plan to {args.save_plan}")
+    tracer = None
+    if args.metrics_out:
+        tracer = obs.Tracer()
+        tracer.set_sink(args.metrics_out)
     kw = dict(max_seq_len=args.max_seq_len, max_slots=args.slots,
               pack_weights=args.pack_weights, plan=plan, paged=args.paged,
               kv_page_size=args.kv_page_size,
               kv_pool_pages=args.kv_pool_pages, paged_attn=args.paged_attn,
               device=args.device, greedy=not args.sample,
-              sample_seed=args.sample_seed)
+              sample_seed=args.sample_seed, tracer=tracer,
+              metrics_interval=args.metrics_interval)
     try:
         if args.speculative:
             eng = SpeculativeEngine(cfg, k=args.speculative,
@@ -152,6 +212,10 @@ def main(argv=None) -> None:
             print(f"adaptive: retunes={stats['retunes']} "
                   f"post_retune_acceptance="
                   f"{stats['post_retune_acceptance']:.3f}")
+    if tracer is not None:
+        tracer.close()
+        print(f"wrote telemetry to {args.metrics_out}")
+        print(obs.console_summary(obs.REGISTRY))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,27 @@
-"""The serving snapshot and training event key sets: a copy of those
-parts of ``repro.obs.schema``. The port's ``ServeEngine.metrics_snapshot()``
-emits exactly ``snapshot_keys(paged)`` and ``SpeculativeEngine``'s
+"""The metrics schema: the key sets and the JSONL stream validator.
+
+A copy of ``repro.obs.schema``'s serving and training halves. The
+port's ``ServeEngine.metrics_snapshot()`` emits exactly
+``snapshot_keys(paged)`` and ``SpeculativeEngine``'s
 ``snapshot_keys(paged, speculative=True)`` (tests hold them to the
 reference's sets); ``run_until_drained`` adds ``DRAIN_EXTRA_KEYS``, and
-``DRAIN_EXTRA_KEYS_ADAPTIVE`` when the draft controller is on."""
+``DRAIN_EXTRA_KEYS_ADAPTIVE`` when the draft controller is on.
+
+Byte accounting (the paper's saving as a live counter): a snapshot's
+``weight_read_bytes_fused`` must equal ``weight_passes x
+fused_analytic_bytes_per_pass`` (the bits/32 model summed per packed
+leaf) within ``BYTE_TOLERANCE``; group-of-32 padding is the only slack.
+``validate_metrics_jsonl`` holds a ``--metrics-out`` stream's final
+snapshot to its mode's key set and to that invariant, for the target
+and, when speculative, the draft. The lint-report half waits for the
+port of ``repro.analysis``.
+"""
 from __future__ import annotations
+
+import json
+from typing import Any, Dict, List, Tuple
+
+BYTE_TOLERANCE = 0.01
 
 SNAPSHOT_KEYS_BASE = frozenset({
     "ticks", "tokens", "slots",
@@ -81,3 +98,135 @@ def drain_keys(paged: bool = False, speculative: bool = False,
     if adaptive:
         keys = keys | DRAIN_EXTRA_KEYS_ADAPTIVE
     return keys
+
+
+def check_byte_parity(snap: Dict[str, Any],
+                      prefix: str = "") -> List[str]:
+    """The fused byte counter against the analytic model on one snapshot;
+    ``prefix`` "" for the target, "draft_" for the draft. Returns error
+    strings (none when the invariant holds, or for an unpacked stream:
+    a zero fused counter with zero analytic bytes is a dense run)."""
+    passes = snap.get(f"{prefix}weight_passes", 0)
+    got = snap.get(f"{prefix}weight_read_bytes_fused", 0)
+    per_pass = snap.get(f"{prefix}fused_analytic_bytes_per_pass", 0)
+    want = passes * per_pass
+    if want == 0:
+        if got != 0:
+            return [f"{prefix}weight_read_bytes_fused={got} but the "
+                    "analytic model predicts 0 (unpacked stream)"]
+        return []
+    rel = abs(got - want) / want
+    if rel > BYTE_TOLERANCE:
+        return [
+            f"{prefix}weight_read_bytes_fused={got} deviates "
+            f"{rel:.2%} from the analytic bits/32 model "
+            f"({passes} passes x {per_pass} B = {want} B); "
+            f"tolerance {BYTE_TOLERANCE:.0%}"]
+    return []
+
+
+def check_paged_pages_parity(snap: Dict[str, Any]) -> List[str]:
+    """The paged-attention byte counter against the KV append stream: a
+    page holds ``kv_page_size`` rows of ``kv_bytes_appended /
+    kv_rows_appended`` bytes each, so ``kv_pages_read_bytes ==
+    kv_pages_read x page_size x bytes/row`` within ``BYTE_TOLERANCE``.
+    Skipped when the run read no pages through the table or appended
+    no rows."""
+    pages = snap.get("kv_pages_read", 0)
+    rows = snap.get("kv_rows_appended", 0)
+    if not snap.get("paged_attn") or not pages or not rows:
+        return []
+    per_row = snap.get("kv_bytes_appended", 0) / rows
+    want = pages * snap.get("kv_page_size", 0) * per_row
+    got = snap.get("kv_pages_read_bytes", 0)
+    if want == 0:
+        if got != 0:
+            return [f"kv_pages_read_bytes={got} but the append stream "
+                    "predicts 0 (dense KV rows)"]
+        return []
+    rel = abs(got - want) / want
+    if rel > BYTE_TOLERANCE:
+        return [
+            f"kv_pages_read_bytes={got} deviates {rel:.2%} from the "
+            f"append-stream model ({pages} pages x "
+            f"{snap.get('kv_page_size', 0)} rows x {per_row:.1f} B = "
+            f"{want:.0f} B); tolerance {BYTE_TOLERANCE:.0%}"]
+    return []
+
+
+def validate_metrics_jsonl(path: str) -> Tuple[Dict[str, int], List[str]]:
+    """Validate one ``--metrics-out`` stream: every line a span or event
+    record, at least one ``serve.metrics`` or ``train.metrics`` event,
+    the last of them with exactly its mode's key set (the mode read off
+    the keys), every ``train.step`` with its keys, and the byte
+    invariants. Returns ``(counts, errors)``: counts of records, spans,
+    events and metrics events; no errors means a valid stream."""
+    errors: List[str] = []
+    counts = {"records": 0, "spans": 0, "events": 0, "metrics_events": 0}
+    last_serve: Dict[str, Any] = {}
+    last_train: Dict[str, Any] = {}
+    try:
+        with open(path) as f:
+            for i, line in enumerate(f):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError as e:
+                    errors.append(f"line {i + 1}: malformed JSON: {e}")
+                    continue
+                counts["records"] += 1
+                if not isinstance(rec, dict) or "kind" not in rec \
+                        or "name" not in rec or "ts" not in rec:
+                    errors.append(f"line {i + 1}: not a span/event record: "
+                                  f"{str(rec)[:80]}")
+                    continue
+                kind = rec["kind"]
+                counts["spans" if kind == "span" else "events"] += 1
+                if kind == "span" and "dur_s" not in rec:
+                    errors.append(f"line {i + 1}: span without dur_s")
+                if rec["name"] == "serve.metrics":
+                    counts["metrics_events"] += 1
+                    last_serve = rec.get("attrs", {})
+                elif rec["name"] == "train.metrics":
+                    counts["metrics_events"] += 1
+                    last_train = rec.get("attrs", {})
+                elif rec["name"] == "train.step":
+                    missing = TRAIN_STEP_EVENT_KEYS - set(
+                        rec.get("attrs", {}))
+                    if missing:
+                        errors.append(f"line {i + 1}: train.step missing "
+                                      f"{sorted(missing)}")
+    except OSError as e:
+        return counts, [f"cannot read {path}: {e}"]
+
+    if counts["records"] == 0:
+        errors.append("empty metrics stream")
+        return counts, errors
+    if counts["metrics_events"] == 0:
+        errors.append("no serve.metrics / train.metrics event in stream")
+        return counts, errors
+    if last_serve:
+        paged = "kv_page_size" in last_serve
+        spec = "k" in last_serve
+        want = snapshot_keys(paged, spec)
+        got = set(last_serve)
+        mode = f"paged={paged} speculative={spec}"
+        if want - got:
+            errors.append(f"serve.metrics [{mode}] missing keys: "
+                          f"{sorted(want - got)}")
+        if got - want:
+            errors.append(f"serve.metrics [{mode}] unexpected keys: "
+                          f"{sorted(got - want)}")
+        errors.extend(check_byte_parity(last_serve))
+        if paged:
+            errors.extend(check_paged_pages_parity(last_serve))
+        if spec:
+            errors.extend(check_byte_parity(last_serve, "draft_"))
+    if last_train:
+        missing = TRAIN_FINAL_KEYS - set(last_train)
+        if missing:
+            errors.append(f"train.metrics missing keys: {sorted(missing)}")
+        errors.extend(check_byte_parity(last_train))
+    return counts, errors

@@ -148,6 +148,9 @@ class ServeEngine:
     kv_pool_pages: Optional[int] = None  # None: slots x pages per sequence
     paged_attn: bool = True        # attend through the table (else gather)
     tracer: Optional[obs.Tracer] = None
+    # every ``metrics_interval`` ticks a ``serve.metrics`` snapshot event,
+    # mirrored into obs.REGISTRY gauges (0: at the drain's end only)
+    metrics_interval: int = 0
     params: Optional[Dict] = None  # serve these instead of LM.init's
     device: Optional[Union[str, torch.device]] = None
     sample_seed: Optional[int] = None  # None: a fresh nonce per engine
@@ -727,6 +730,8 @@ class ServeEngine:
             self.tokens_out += emitted
             sp["emitted"] = emitted
             sp["finished"] = len(finished)
+        if self.metrics_interval and self.ticks % self.metrics_interval == 0:
+            self._emit_metrics()
         return emitted
 
     # -- observability --------------------------------------------------------
@@ -798,11 +803,24 @@ class ServeEngine:
             })
         return snap
 
+    def _emit_metrics(self) -> Dict[str, Any]:
+        """A snapshot as a ``serve.metrics`` event and as REGISTRY gauges
+        (``serve_<key>``, the last engine's value)."""
+        snap = self.metrics_snapshot()
+        self.tracer.event("serve.metrics", **snap)
+        for key, val in snap.items():
+            if isinstance(val, bool) or not isinstance(val, (int, float)):
+                continue
+            obs.REGISTRY.gauge(f"serve_{key}",
+                               f"ServeEngine {key} (live mirror)."
+                               ).set(float(val))
+        return snap
+
     def run_until_drained(self, max_ticks: int = 10000) -> Dict[str, Any]:
         t0 = time.perf_counter()
         while (self._queue or self._active) and self.ticks < max_ticks:
             self.step()
-        stats: Dict[str, Any] = self.metrics_snapshot()
-        self.tracer.event("serve.metrics", **stats)
-        stats["wall_s"] = time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        stats: Dict[str, Any] = self._emit_metrics()
+        stats["wall_s"] = dt
         return stats
