@@ -167,6 +167,30 @@ Phases; any failure raises and the script exits non-zero:
    unpack, convert and truncate at 0), and the drain's last decode call
    replayed through the plain versions on the card, its logits within
    PLAIN_LOGIT_TOL of their largest magnitude.
+3e. the paper's kernel-granularity flow (Fig. 7) on torch twins of the
+   reference suite's Deferred, Hotspot, CFD and IMGVF kernels
+   (``benchmarks/kernel_suite.py``, in its operation order). At the
+   suite's 16 x 16 (inputs from numpy, seed 0), ``compress_kernel`` on
+   the card and on the CPU at paper_suite.py's perfect and high
+   thresholds, every trial's metric recorded: where the searches take
+   the same decisions, the formats, int bits, both pressures, split
+   counts and indirection-table words must be equal; a differing
+   decision must lie within FLOW_GATE_MARGIN of the gate, is named, and
+   then only the flow's properties are held. Trials within the margin
+   are named either way. At 1,024 x 1,024 (Rodinia hotspot's largest
+   grid), ``tune_kernel`` of each twin at high on the card: seconds to
+   a device sync, evaluations, peak memory, and B8's launches, zeroed
+   just before and read just after, held to one truncate and one
+   convert per value below 32 bits in every recorded run; each tuned
+   kernel's run with the CUDA B8 bit for bit against its run through
+   B8's plain versions on the card; truncate and convert timed at one
+   grid beside their bound and plain versions. Each allocation's
+   ``PackedRegisterFile`` written and read across a warp's lanes on the
+   card and on the CPU: the same lanes, storage and fetch and
+   double-fetch counters. Then the paper's arithmetic on the host:
+   Table 1's occupancy chain, the area table, and Fig. 9, 10 and 12's
+   numbers from the flow's pressures (the cycle-level model of the
+   paper's Fermi SM, not a measurement of this card).
 4. cross-device parity, for each of the six models at 2 layers (the
    hybrid at 4: a group and a tail layer; whisper's encoder at 2) in
    f32: PARITY_STEPS decode_steps at full width on the card (kernels)
@@ -194,7 +218,8 @@ Phases; any failure raises and the script exits non-zero:
    calibrated on the card and on the CPU from the same parameters and
    batches: the same plan and evaluations, the losses and metrics within
    CALIB_PARITY_RTOL of the loss, and no trial's metric within
-   CALIB_GATE_MARGIN of the gate (the smallest distance printed).
+   CALIB_GATE_MARGIN of the gate (the smallest distance printed). The
+   kernel flow's card-against-CPU parity is phase 3e's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds every kernel's numbers. Without a card, or without the rest of the
@@ -2483,6 +2508,441 @@ def calibrate_phase(torch, np, ops, ref, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the kernel-granularity flow (Fig. 7)
+# ---------------------------------------------------------------------------
+
+# the suite's image side (kernel_suite.py) and the largest grid Rodinia's
+# hotspot ships (temp_1024); paper_suite.py's perfect and high thresholds
+# per metric. A trial at the gate is one an ulp of exp, or a reduction's
+# order, may decide on one device and not on the other: at high, its
+# metric lies within FLOW_GATE_MARGIN of the threshold; at perfect
+# (bit-identical output, or no deviation at all), it was rejected with
+# its outputs FLOW_GATE_ULPS f32 ulps or fewer from the reference's, in
+# all (one or two outputs an ulp or two off)
+FLOW_N, FLOW_BIG_N = 16, 1024
+FLOW_THRESHOLDS = {"ssim": (1.0, 0.9), "deviation": (0.0, 10.0)}
+FLOW_GATE_MARGIN = {"ssim": 1e-4, "deviation": 1e-3}
+FLOW_GATE_ULPS = 2
+# Table 4: the CUDA kernels' registers per thread. The occupancy figures
+# anchor the absolute pressure there and apply the measured reduction, as
+# paper_suite.py does
+TABLE4_REGS = {"Deferred": 47, "Hotspot": 31, "CFD": 60, "IMGVF": 52}
+
+
+def flow_deferred(albedo, normal_z, depth):
+    import torch
+    light = torch.clamp(normal_z, 0.0, 1.0)
+    fog = torch.exp(-depth * 0.5)
+    return albedo * light * fog + 0.1 * albedo
+
+
+def flow_hotspot(temp, power):
+    import torch
+    rows = torch.arange(temp.shape[0], device=temp.device)
+    cols = torch.arange(temp.shape[1], device=temp.device)
+    border = ((rows[:, None] % (temp.shape[0] - 1)) == 0) | (
+        (cols[None, :] % (temp.shape[1] - 1)) == 0)
+    for _ in range(4):
+        up = torch.roll(temp, 1, 0)
+        dn = torch.roll(temp, -1, 0)
+        lf = torch.roll(temp, 1, 1)
+        rt = torch.roll(temp, -1, 1)
+        delta = 0.1 * (up + dn + lf + rt - 4 * temp) + 0.05 * power
+        temp = torch.where(border, temp, temp + delta)
+    return temp
+
+
+def flow_cfd(rho, mom):
+    import torch
+    for _ in range(3):
+        flux = 0.25 * (torch.roll(rho, 1, 0) + torch.roll(rho, -1, 0)
+                       + torch.roll(rho, 1, 1) + torch.roll(rho, -1, 1))
+        rho = rho + 0.1 * (flux - rho) + 0.01 * mom
+        mom = mom * 0.99
+    return rho
+
+
+def flow_imgvf(grad, mask):
+    import torch
+    v = grad
+    for _ in range(5):
+        lap = (torch.roll(v, 1, 0) + torch.roll(v, -1, 0)
+               + torch.roll(v, 1, 1) + torch.roll(v, -1, 1) - 4 * v)
+        v = v + 0.2 * lap - 0.1 * mask * (v - grad)
+    return v
+
+
+# torch twins of kernel_suite.py's kernels, in its operation order:
+# name -> (twin, N x N inputs, metric, warps per block and shared bytes
+# per block (Table 4))
+FLOW_SUITE = {"Deferred": (flow_deferred, 3, "ssim", 8, 0),
+              "Hotspot": (flow_hotspot, 2, "deviation", 8, 0),
+              "CFD": (flow_cfd, 2, "deviation", 6, 0),
+              "IMGVF": (flow_imgvf, 2, "deviation", 10, 14560)}
+
+
+def flow_inputs(torch, np, name, n, device):
+    """The kernel's n x n inputs, uniform in [0, 1), from numpy, seed 0."""
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.random((n, n), dtype=np.float32))
+                 .to(device) for _ in range(FLOW_SUITE[name][1]))
+
+
+def recording_spec(kind, threshold):
+    """A QualitySpec that records every trial: (metric, accepted, the
+    outputs' distance in f32 ulps from the reference's, summed)."""
+    import torch
+
+    from repro_torch.core.quality import QualitySpec
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(QualitySpec):
+        trials: list = dataclasses.field(default_factory=list,
+                                         compare=False)
+
+        def accepts(self, ref, out) -> bool:
+            ok = super().accepts(ref, out)
+            ulps = (ref.float().view(torch.int32).long()
+                    - out.float().view(torch.int32).long()).abs().sum()
+            self.trials.append((self.metric(ref, out), ok, int(ulps)))
+            return ok
+    return Recording(kind, threshold)
+
+
+def at_gate(spec, trial) -> bool:
+    """Whether a recorded trial lies at its gate (FLOW_GATE_MARGIN,
+    FLOW_GATE_ULPS)."""
+    metric, accepted, ulps = trial
+    perfect = (spec.threshold >= 1.0 if spec.kind == "ssim"
+               else spec.threshold <= 0.0)
+    if perfect:
+        return not accepted and ulps <= FLOW_GATE_ULPS
+    return abs(metric - spec.threshold) <= FLOW_GATE_MARGIN[spec.kind]
+
+
+def compression_record(kc):
+    """The fields phase 3e holds equal between the card and the CPU."""
+    return {"float_formats": kc.float_formats, "int_bits": kc.int_bits,
+            "baseline_pressure": kc.baseline_pressure,
+            "packed_pressure": kc.packed_pressure,
+            "split_count": kc.allocation.split_count,
+            "table_words": kc.allocation.table_words(),
+            "tune_evals": kc.tune_evals}
+
+
+def flow_compress_parity(torch, np):
+    """``compress_kernel`` of each twin at FLOW_N on the card and on the
+    CPU, at the perfect and high thresholds, every trial recorded. Where
+    the two searches take the same decisions, the float formats, int
+    bits, both pressures, split counts and table words must be equal;
+    where a decision differs, the first trial that differs must lie at
+    the gate (``at_gate``) on one side, is named, and only the flow's
+    properties are held (the card's formats meet the gate, packed
+    pressure <= baseline). Trials at the gate are named either way.
+    Returns {(name, threshold
+    label): the card's KernelCompression}."""
+    from repro_torch.core.compress import compress_kernel
+    from repro_torch.core.precision_tuning import QuantizedKernel
+
+    results = {}
+    for name, (fn, _, kind, _, _) in FLOW_SUITE.items():
+        for label, threshold in zip(("perfect", "high"),
+                                    FLOW_THRESHOLDS[kind]):
+            kc, specs, secs = {}, {}, {}
+            for dev in ("cuda", "cpu"):
+                specs[dev] = recording_spec(kind, threshold)
+                args = flow_inputs(torch, np, name, FLOW_N, dev)
+                t0 = time.perf_counter()
+                kc[dev] = compress_kernel(name, fn, [args], specs[dev],
+                                          device=dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                secs[dev] = time.perf_counter() - t0
+            trials = {d: specs[d].trials for d in specs}
+            near = {d: [i for i, t in enumerate(trials[d])
+                        if at_gate(specs[d], t)] for d in specs}
+            differ = next((i for i, (a, b) in enumerate(zip(
+                trials["cuda"], trials["cpu"])) if a[1] != b[1]), None)
+            g, c = (compression_record(kc[d]) for d in ("cuda", "cpu"))
+            rec = {"kernel": name, "threshold": f"{label} ({kind} "
+                   f"{threshold})", "card_s": secs["cuda"],
+                   "cpu_s": secs["cpu"], "evaluations": g["tune_evals"],
+                   "values": len(g["float_formats"]),
+                   "baseline_pressure": g["baseline_pressure"],
+                   "packed_pressure": g["packed_pressure"],
+                   "split_count": g["split_count"], "int_bits": g["int_bits"],
+                   "mean_float_bits": sum(g["float_formats"].values())
+                   / max(len(g["float_formats"]), 1),
+                   "fewest_ulps_rejected": min(
+                       [t[2] for d in trials for t in trials[d]
+                        if not t[1]] + [math.inf]),
+                   "nearest_metric_to_gate": min(
+                       [abs(t[0] - threshold) for d in trials
+                        for t in trials[d] if t[0] != threshold]
+                       + [math.inf]),
+                   "trials_at_gate": {d: [(i, trials[d][i]) for i in
+                                          near[d]] for d in near},
+                   "decisions": "identical" if differ is None and len(
+                       trials["cuda"]) == len(trials["cpu"]) else
+                   f"differ at trial {differ}"}
+            if rec["decisions"] == "identical":
+                if g != c:
+                    raise AssertionError(f"flow {name} {label}: card {g} != "
+                                         f"CPU {c}")
+                rec["card_equals_cpu"] = sorted(g)
+            else:
+                if differ is None or differ not in near["cuda"] + near["cpu"]:
+                    raise AssertionError(f"flow {name} {label}: decisions "
+                                         f"differ away from the gate: {rec}")
+                qk = QuantizedKernel(fn, *flow_inputs(torch, np, name, FLOW_N,
+                                                      "cuda"), device="cuda")
+                args = flow_inputs(torch, np, name, FLOW_N, "cuda")
+                if not specs["cuda"].accepts(qk.run({}, *args), qk.run(
+                        kc["cuda"].float_formats, *args)) or (
+                        g["packed_pressure"] > g["baseline_pressure"]):
+                    raise AssertionError(f"flow {name} {label}: the card's "
+                                         f"result misses its gate: {rec}")
+                rec["at_gate"] = {d: trials[d][differ] for d in trials}
+            log("flow: " + json.dumps(rec, default=str))
+            results[(name, label)] = kc["cuda"]
+    return results
+
+
+def flow_tune_big(torch, np, ops, ref):
+    """``tune_kernel`` of each twin at FLOW_BIG_N x FLOW_BIG_N on the card
+    at the high threshold (one 4 MB f32 grid a value): seconds to a
+    device sync, evaluations, peak memory above the inputs, and B8's
+    launches, zeroed just before and read just after, held to one
+    truncate and one convert per value below 32 bits in every recorded
+    run (the reference run, then one per evaluation). Then each tuned
+    kernel's ``run`` with the CUDA B8 against the same run with B8's
+    plain versions on the card, bit for bit; and truncate and convert
+    timed at one grid (AF16) beside their bound and plain versions.
+    Returns (launches by run, the kernels' numbers)."""
+    from collections import Counter
+
+    from repro_torch.core.precision_tuning import QuantizedKernel, tune_kernel
+    from repro_torch.core.quality import HIGH
+
+    launches, calls = {}, Counter()
+    event_ms, event_bound_ms = Counter(), Counter()
+    for name, (fn, _, kind, _, _) in FLOW_SUITE.items():
+        args = flow_inputs(torch, np, name, FLOW_BIG_N, "cuda")
+        qk = QuantizedKernel(fn, *args, device="cuda")
+        runs = []
+        run = qk.run
+
+        def recording_run(formats, *a, _run=run, _runs=runs):
+            _runs.append(dict(formats))
+            return _run(formats, *a)
+        qk.run = recording_run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with kernel_calls(torch, ops, ("truncate", "convert")) as events:
+            res = tune_kernel(qk, [args], HIGH[kind])
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        qk.run = run
+        narrow = sum(sum(b < 32 for b in f.values()) for f in runs)
+        expect = dict.fromkeys(counts, 0)
+        expect.update(truncate=narrow, convert=narrow)
+        kern = events()
+        for k, v in kern.items():
+            calls[k] += v["calls"]
+            event_ms[k] += v["event_ms"]
+            event_bound_ms[k] += v["bound_ms"]
+        hist = Counter(res.formats.values())
+        rec = {"kernel": name, "grid": [FLOW_BIG_N, FLOW_BIG_N],
+               "values": len(qk.values), "seconds": secs,
+               "evaluations": res.evaluations, "runs": len(runs),
+               "ms_per_evaluation": secs * 1e3 / max(res.evaluations, 1),
+               "peak_memory_mb_above_inputs": (peak - base) / 1e6,
+               "peak_memory_mb": peak / 1e6,
+               "mean_float_bits": res.mean_bits(),
+               "width_histogram": {str(b): hist[b] for b in sorted(hist)},
+               "launches": {k: v for k, v in counts.items() if v},
+               "launches_expected": {k: v for k, v in expect.items() if v},
+               "event_ms_per_call": {k: v["event_ms"] / v["calls"]
+                                     for k, v in kern.items()}}
+        log("flow tune: " + json.dumps(rec))
+        if counts != expect or len(runs) != res.evaluations + 1:
+            raise AssertionError(f"flow tune {name}: launches {counts} != "
+                                 f"the recorded runs' {expect} "
+                                 f"({len(runs)} runs)")
+        launches[f"kernel flow {name} tune {FLOW_BIG_N}"] = counts
+
+        # the tuned run: CUDA B8 against its plain versions on the card
+        got = qk.run(res.formats, *args)
+        ops.reset_launch_counts()
+        with plain_ops(ops, ref):
+            want = qk.run(res.formats, *args)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"flow {name}: the plain run launched "
+                                 f"{ops.launch_counts()}")
+        _expect_same_bits(torch, got, want, f"flow {name} tuned run")
+        log(f"flow: {name} tuned run at {FLOW_BIG_N}x{FLOW_BIG_N}, "
+            f"{sum(b < 32 for b in res.formats.values())} values below 32 "
+            f"bits: CUDA B8 and its plain versions bit-identical")
+        del qk, got, want, args
+        torch.cuda.empty_cache()
+
+    # B8 at one grid of the flow (AF16): kernel, plain, bound
+    x = torch.rand(FLOW_BIG_N, FLOW_BIG_N, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    code = ops.truncate(x, 16)
+    grid = {}
+    for name, operand, kernel, plain in (
+            ("truncate", x, ops.truncate, ref.truncate_ref),
+            ("convert", code, ops.convert, ref.convert_ref)):
+        ms, issue = time_ms(torch, [lambda: kernel(operand, 16)], 20)
+        b_ms, b_by = bound(operand.numel() * 8, 0.0)
+        grid[name] = {"shape": [FLOW_BIG_N, FLOW_BIG_N], "bits": 16,
+                      "kernel_ms": ms, "host_issue_ms": issue,
+                      "plain_ms": time_ms(torch, [lambda: plain(operand, 16)],
+                                          5)[0],
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_share": b_ms / ms}
+        log(f"flow {name}: " + json.dumps(grid[name]))
+    kernels = {k: {"calls_in_flow_tunes": calls[k],
+                   "event_ms_per_call": event_ms[k] / max(calls[k], 1),
+                   "event_bound_ms_per_call": event_bound_ms[k]
+                   / max(calls[k], 1),
+                   "event_timing": "CUDA events around each wrapper call in "
+                   "the tunes, the stream not held: device time plus the "
+                   "host's issue where the stream idled",
+                   "grid_call": grid[k]} for k in ("truncate", "convert")}
+    return launches, kernels
+
+
+def flow_lanes(np, op, rng):
+    """32 lanes for an operand: f32 values over a few magnitudes, or
+    integers anywhere in its range."""
+    if op.is_float:
+        return (rng.standard_normal(32) * np.exp2(rng.integers(-8, 8, 32))
+                ).astype(np.float32)
+    lo, hi = ((-(1 << (op.bits - 1)), (1 << (op.bits - 1)) - 1) if op.signed
+              else (0, (1 << op.bits) - 1))
+    v = rng.integers(lo, hi + 1, 32, dtype=np.int64)
+    return (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def flow_register_file(torch, np, ops, compressions):
+    """Each allocation's register file on the card (B8's CUDA truncate and
+    convert as the Value Truncator and Converter) and on the CPU: every
+    operand written across a warp's 32 lanes and read back; the lanes,
+    the raw codes, the storage and the fetch and double-fetch counters
+    must be equal, and the card's B8 launches one truncate per float
+    write and one convert per float read."""
+    from repro_torch.core.regfile import PackedRegisterFile
+
+    launches = {}
+    for (name, label), kc in compressions.items():
+        rng = np.random.default_rng(0)
+        values = {op.name: flow_lanes(np, op, rng) for op in kc.operands}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            rf = PackedRegisterFile(allocation=kc.allocation, device=dev)
+            ops.reset_launch_counts()
+            for op in kc.operands:
+                rf.write(op.name, torch.from_numpy(values[op.name]).to(dev))
+            reads = [rf.read(op.name) for op in kc.operands]
+            raws = [rf.read_raw(op.name) for op in kc.operands]
+            counts = ops.launch_counts()
+            out[dev] = ([r.cpu().view(torch.int32) for r in reads + raws],
+                        rf.storage.cpu(),
+                        (rf.src_table_reads, rf.dst_table_reads,
+                         rf.register_fetches, rf.double_fetches), counts)
+        g, c = out["cuda"], out["cpu"]
+        floats = sum(op.is_float for op in kc.operands)
+        lanes_equal = all(torch.equal(a, b) for a, b in zip(g[0], c[0]))
+        if not (lanes_equal and torch.equal(g[1], c[1]) and g[2] == c[2]):
+            raise AssertionError(f"flow register file {name} {label}: card "
+                                 f"and CPU differ (counters {g[2]} / {c[2]})")
+        want = dict.fromkeys(g[3], 0)
+        want.update(truncate=floats, convert=floats)
+        if g[3] != want:
+            raise AssertionError(f"flow register file {name} {label}: "
+                                 f"launches {g[3]} != {want}")
+        launches[f"kernel flow {name} {label} register file"] = g[3]
+        log(f"flow register file: {name} {label}: {len(kc.operands)} "
+            f"operands ({floats} float) in {kc.allocation.registers_used} "
+            f"registers, {kc.allocation.split_count} split; lanes, storage "
+            f"and counters (src/dst table reads, fetches, double fetches "
+            f"{g[2]}) equal card and CPU")
+    return launches
+
+
+def flow_paper_model(compressions):
+    """Table 1's occupancy chain, the area table and Fig. 9-12's numbers
+    from the flow's pressures: host arithmetic and the cycle-level model
+    of the paper's Fermi SM (not a measurement of this card)."""
+    from repro_torch.core import area_model, smsim
+    from repro_torch.core.occupancy import ipc_uplift_table1, occupancy
+
+    prof = smsim.KernelProfile("imgvf", n_instructions=600, frac_mem=0.10,
+                               frac_sfu=0.03, dep_distance=4, seed=1)
+    trace = smsim.build_trace(prof)
+    orig, packed = occupancy(52, 10), occupancy(29, 10)
+    table1 = dict(ipc_uplift_table1(), model_ipc={
+        "original": smsim.simulate(trace, orig.warps,
+                                   smsim.BASELINE_PIPE).ipc,
+        "packed_rf": smsim.simulate(trace, packed.warps,
+                                    smsim.PROPOSED_PIPE).ipc,
+        "artificial": smsim.simulate(trace, packed.warps,
+                                     smsim.BASELINE_PIPE).ipc})
+    log("paper model (Fermi SM, not this card): table 1 "
+        + json.dumps(table1))
+    a, v = area_model.fermi_area(), area_model.volta_area()
+    log("paper model: area " + json.dumps({
+        **dataclasses.asdict(a), "fermi_per_sm": a.total_per_sm,
+        "fermi_total": area_model.fermi_total(),
+        "fermi_fraction": area_model.fermi_fraction(), "volta": v}))
+    figs = {}
+    for name, (_, _, _, warps, shared) in FLOW_SUITE.items():
+        perfect, high = (compressions[(name, t)] for t in ("perfect",
+                                                            "high"))
+        bars = {"baseline": perfect.baseline_pressure,
+                "ints_only": perfect.repressure(True, False),
+                "floats_perfect": perfect.repressure(False, True),
+                "floats_high": high.repressure(False, True),
+                "both_perfect": perfect.packed_pressure,
+                "both_high": high.packed_pressure}
+        scale = TABLE4_REGS[name] / max(bars["baseline"], 1)
+        occ = {k: occupancy(max(int(round(bars[k] * scale)), 1), warps,
+                            shared) for k in ("baseline", "both_perfect",
+                                              "both_high")}
+        figs[name] = {"fig9_pressure": bars, "fig10_occupancy": {
+            k: o.occupancy for k, o in occ.items()}}
+        if name == "IMGVF":
+            figs[name]["fig12_ipc_by_writeback_delay"] = \
+                smsim.writeback_sensitivity(smsim.KernelProfile(
+                    name, n_instructions=400, frac_mem=0.12, frac_sfu=0.04,
+                    dep_distance=4, seed=1), occ["both_high"].warps)
+    log("paper model: figures 9, 10, 12 from the flow's pressures "
+        + json.dumps(figs))
+
+
+def flow_phase(torch, np, ops, ref):
+    """Phase 3e: the kernel-granularity flow on the card. Returns
+    {"launches": by run, "kernels": truncate/convert's numbers}."""
+    t0 = time.perf_counter()
+    compressions = flow_compress_parity(torch, np)
+    t1 = time.perf_counter()
+    launches, kernels = flow_tune_big(torch, np, ops, ref)
+    t2 = time.perf_counter()
+    launches.update(flow_register_file(torch, np, ops, compressions))
+    flow_paper_model(compressions)
+    log(f"flow: {time.perf_counter() - t0:.1f} s (compress parity "
+        f"{t1 - t0:.1f} s, tunes at {FLOW_BIG_N} {t2 - t1:.1f} s)")
+    return {"launches": launches, "kernels": kernels}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -3142,6 +3602,9 @@ def main() -> int:
     launches.update(calib["launches"])
     log(f"calibrated and served the plans "
         f"({time.perf_counter() - t_start:.0f} s so far)")
+    flow = flow_phase(torch, np, ops, ref)
+    launches.update(flow["launches"])
+    log(f"ran the kernel flow ({time.perf_counter() - t_start:.0f} s so far)")
     for cfg in (qwen, moe, *fams):
         parity(torch, np, cfg)
     for cfg in (qwen, moe, whisper):
@@ -3196,6 +3659,8 @@ def main() -> int:
                                  for mode, c in cs.items()})
         if name in calib["kernels"]:  # the tuner's round trip
             kernels[-1]["calibrate"] = calib["kernels"][name]
+        if name in flow["kernels"]:   # the kernel flow's round trip
+            kernels[-1]["flow"] = flow["kernels"][name]
         if name in prefill_shapes:   # at the rows the prefill gives it
             kernels[-1]["prefill"] = dict(
                 prefill_shapes[name],

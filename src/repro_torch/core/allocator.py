@@ -1,11 +1,20 @@
-"""The KV page pool: fixed-size KV-cache pages handed out to requests.
+"""Register-slice allocation (Section 4.3) and the KV page pool.
 
-Port of the serving half of ``repro.core.allocator`` (``KVPagePool``,
-``PoolExhausted``, ``KVPagePool.chain_key``); the register-slice
-allocator of the paper's Section 4.3 is not on the serving path and is
-not ported. Host Python only: page ids, refcounts, reservations and a
-prefix-hash registry. The device buffers indexed by the page ids belong
-to the caller (``ServeEngine``'s paged decode state).
+Port of ``repro.core.allocator``, both halves. Host Python only.
+
+**Slices.** Operands annotated with a bitwidth (range analysis for
+integers, precision tuning for floats) are packed into the 4-bit slices
+of 32-bit physical registers. An operand may be split across at most two
+physical registers; its placement is an indirection-table entry of two
+register ids and two 8-bit slice masks, the 32-bit (r0, m0, r1, m1)
+entry of Fig. 7. A linear scan over live ranges gives the register
+pressure, the paper's figure of merit (Fig. 9); ``whole_program=True``
+makes every operand always live.
+
+**KV pages.** ``KVPagePool`` (with ``PoolExhausted`` and
+``KVPagePool.chain_key``) hands fixed-size KV-cache pages to requests.
+The device buffers indexed by the page ids belong to the caller
+(``ServeEngine``'s paged decode state).
 
 Page id 0 is the *scrap page*: the write target of unallocated
 page-table entries, never handed out, so ids run 1..n_pages. Capacity
@@ -27,10 +36,267 @@ returns to the free list. A writer copies a shared page
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
-from typing import Callable, Deque, Dict, Optional, Sequence
+import math
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.core.formats import (REGISTER_BITS, SLICES_PER_REGISTER,
+                                      round_bits_to_slice, slices_for_bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class Operand:
+    """One architectural register / logical value to be packed."""
+
+    name: str
+    bits: int                      # bits needed (pre slice-rounding)
+    is_float: bool = False
+    signed: bool = False
+    start: int = 0                 # live range [start, end)
+    end: int = 1 << 30
+
+    @property
+    def slices(self) -> int:
+        return slices_for_bits(self.bits)
+
+    @property
+    def slice_bits(self) -> int:
+        return round_bits_to_slice(self.bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class IndirectionEntry:
+    """(r0, m0, r1, m1): the 32-bit indirection-table entry of Fig. 7.
+
+    Convention (matches Fig. 3): the operand's slices in LSB-to-MSB order
+    occupy the *set bits of mask0 in increasing slice index*, then the set
+    bits of mask1.
+    """
+
+    name: str
+    reg0: int
+    mask0: int
+    reg1: int = 0
+    mask1: int = 0
+    is_float: bool = False
+    signed: bool = False
+    bits: int = REGISTER_BITS
+
+    @property
+    def split(self) -> bool:
+        return self.mask1 != 0
+
+    @property
+    def slices(self) -> int:
+        return bin(self.mask0).count("1") + bin(self.mask1).count("1")
+
+    def encode(self) -> int:
+        """Pack into the 32-bit table word: r0|m0|r1|m1, 8 bits each."""
+        for field, val in (("reg0", self.reg0), ("reg1", self.reg1)):
+            if not 0 <= val < 256:
+                raise ValueError(f"{field}={val} does not fit in 8 bits")
+        return (
+            (self.reg0 & 0xFF)
+            | ((self.mask0 & 0xFF) << 8)
+            | ((self.reg1 & 0xFF) << 16)
+            | ((self.mask1 & 0xFF) << 24)
+        )
+
+    @staticmethod
+    def decode(word: int, name: str = "", **meta) -> "IndirectionEntry":
+        return IndirectionEntry(
+            name=name,
+            reg0=word & 0xFF,
+            mask0=(word >> 8) & 0xFF,
+            reg1=(word >> 16) & 0xFF,
+            mask1=(word >> 24) & 0xFF,
+            **meta,
+        )
+
+    def slice_positions(self) -> Tuple[Tuple[int, int], ...]:
+        """((reg, slice_index), ...) for operand slices LSB->MSB."""
+        pos = []
+        for reg, mask in ((self.reg0, self.mask0), (self.reg1, self.mask1)):
+            for s in range(SLICES_PER_REGISTER):
+                if mask & (1 << s):
+                    pos.append((reg, s))
+        return tuple(pos)
+
+
+@dataclasses.dataclass
+class Allocation:
+    entries: Dict[str, IndirectionEntry]
+    register_pressure: int          # max simultaneously-live physical regs
+    registers_used: int             # distinct physical registers touched
+    total_slices: int               # payload slices across all operands
+    baseline_pressure: int          # 1 operand = 1 register (the baseline RF)
+    split_count: int                # operands split across two registers
+
+    @property
+    def ideal_pressure(self) -> int:
+        return max(1, math.ceil(self.total_slices / SLICES_PER_REGISTER))
+
+    @property
+    def compression_ratio(self) -> float:
+        return self.baseline_pressure / max(self.register_pressure, 1)
+
+    def table_words(self) -> List[int]:
+        return [e.encode() for e in self.entries.values()]
+
+
+class SliceAllocator:
+    """First-fit slice packer with <=2-way operand split (Section 4.3).
+
+    ``prefer_contiguous``: when True, avoid splitting whenever a single
+    register can hold the operand — the paper's power trade-off (§6.5:
+    contiguous placement avoids double fetches; splitting minimizes
+    fragmentation).
+    """
+
+    def __init__(self, prefer_contiguous: bool = False,
+                 max_registers: int = 256):
+        self.prefer_contiguous = prefer_contiguous
+        self.max_registers = max_registers
+
+    def allocate(self, operands: Sequence[Operand],
+                 whole_program: bool = False) -> Allocation:
+        ops = list(operands)
+        if whole_program:
+            ops = [dataclasses.replace(o, start=0, end=1) for o in ops]
+        # Linear scan: process operand definitions in program order;
+        # free registers when every resident operand has died.
+        ops_sorted = sorted(ops, key=lambda o: (o.start, -o.slices))
+        free: Dict[int, int] = {}          # reg id -> free-slice bitmask
+        # reg id -> [(operand, mask)] currently resident
+        expiry: Dict[int, List[Tuple[Operand, int]]] = {}
+        entries: Dict[str, IndirectionEntry] = {}
+        next_reg = 0
+        live_regs: set = set()
+        pressure = 0
+        split_count = 0
+
+        def _expire(now: int) -> None:
+            for reg in list(live_regs):
+                residents = expiry.get(reg, [])
+                dead = [(o, m) for o, m in residents if o.end <= now]
+                residents = [(o, m) for o, m in residents if o.end > now]
+                for _, m in dead:           # reclaim the dead slices
+                    free[reg] = free.get(reg, 0) | m
+                if residents:
+                    expiry[reg] = residents
+                else:
+                    expiry.pop(reg, None)
+                    free.pop(reg, None)     # retired: fully free register
+                    live_regs.discard(reg)
+
+        full_mask = (1 << SLICES_PER_REGISTER) - 1
+
+        def _grab(reg: int, mask: int, count: int) -> int:
+            """Take ``count`` lowest free slices of ``reg``; return mask."""
+            taken = 0
+            got = 0
+            for s in range(SLICES_PER_REGISTER):
+                if got == count:
+                    break
+                if mask & (1 << s):
+                    taken |= 1 << s
+                    got += 1
+            assert got == count
+            free[reg] = mask & ~taken
+            return taken
+
+        def _open_register() -> int:
+            nonlocal next_reg
+            if next_reg >= self.max_registers:
+                raise RuntimeError(
+                    f"out of physical registers (>{self.max_registers})"
+                )
+            reg = next_reg
+            next_reg += 1
+            free[reg] = full_mask
+            return reg
+
+        for op in ops_sorted:
+            _expire(op.start)
+            need = op.slices
+            # Candidate registers currently holding live operands, most-full
+            # first (first-fit-decreasing flavour keeps fragmentation low).
+            cands = sorted(
+                (r for r in live_regs if free.get(r, 0)),
+                key=lambda r: bin(free[r]).count("1"),
+            )
+            placed: List[Tuple[int, int]] = []   # (reg, mask)
+
+            single = next(
+                (r for r in cands if bin(free[r]).count("1") >= need), None
+            )
+            if single is not None:
+                placed = [(single, _grab(single, free[single], need))]
+            elif not self.prefer_contiguous and cands:
+                # Split: largest partial + remainder in one more register.
+                first = max(cands, key=lambda r: bin(free[r]).count("1"))
+                avail = bin(free[first]).count("1")
+                take = min(avail, need)
+                rest = need - take
+                second = next(
+                    (
+                        r for r in cands
+                        if r != first and bin(free[r]).count("1") >= rest
+                    ),
+                    None,
+                )
+                if rest > 0 and second is None:
+                    second = _open_register()
+                m0 = _grab(first, free[first], take)
+                placed = [(first, m0)]
+                if rest > 0:
+                    placed.append((second, _grab(second, free[second], rest)))
+            if not placed:
+                reg = _open_register()
+                placed = [(reg, _grab(reg, free[reg], need))]
+
+            if len(placed) > 2:  # pragma: no cover - structurally impossible
+                raise AssertionError("operand split across >2 registers")
+            if len(placed) == 2:
+                split_count += 1
+            (r0, m0), *tail = placed
+            r1, m1 = tail[0] if tail else (0, 0)
+            entries[op.name] = IndirectionEntry(
+                name=op.name, reg0=r0, mask0=m0, reg1=r1, mask1=m1,
+                is_float=op.is_float, signed=op.signed, bits=op.slice_bits,
+            )
+            for reg, mask in placed:
+                live_regs.add(reg)
+                expiry.setdefault(reg, []).append((op, mask))
+            pressure = max(pressure, len(live_regs))
+
+        # Baseline: every operand takes one whole 32-bit register; pressure
+        # is the max number simultaneously live.
+        events = sorted(
+            [(o.start, 1) for o in ops_sorted]
+            + [(o.end, -1) for o in ops_sorted]
+        )
+        base, cur = 0, 0
+        for _, d in events:
+            cur += d
+            base = max(base, cur)
+
+        return Allocation(
+            entries=entries,
+            register_pressure=pressure,
+            registers_used=next_reg,
+            total_slices=sum(o.slices for o in ops_sorted),
+            baseline_pressure=base,
+            split_count=split_count,
+        )
+
+
+def pack_operand_table(entries: Sequence[IndirectionEntry]) -> List[int]:
+    """Emit the kernel's indirection-table image (one 32-bit word/entry)."""
+    return [e.encode() for e in entries]
 
 
 class PoolExhausted(RuntimeError):

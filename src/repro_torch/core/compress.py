@@ -1,6 +1,18 @@
-"""Compression plans at tensor granularity.
+"""The static compression flow (Fig. 7), at both granularities.
 
-Port of the tensor-granularity half of ``repro.core.compress``: the
+Port of ``repro.core.compress``.
+
+**Kernel granularity** (the paper's evaluation pipeline):
+``compress_kernel`` exports a kernel (``QuantizedKernel``), bounds its
+integer values (``RangeAnalysis``, Section 4.2, with the caller's input
+ranges), tunes the width of every float value against a quality
+threshold (``tune_kernel``, Section 4.1), computes each value's live
+range over the graph and packs the values into register slices with
+indirection tables (``SliceAllocator``, Section 4.3). The result,
+``KernelCompression``, holds the register pressure before and after,
+which the occupancy and SM models turn into the paper's Fig. 9-11.
+
+**Tensor granularity** (the framework's deployment path): the
 ``CompressionPlan`` (per-leaf widths, versioned JSON codec, footprint
 and mean-width accounting), ``plan_tensors`` (a plan from the
 quality-gated tensor tuning and integer ranges), ``uniform_plan`` (one
@@ -9,25 +21,168 @@ speculative draft's plan, one step down the ladder), ``repack``
 (re-encode a parameter tree at a plan's widths, in place) and
 ``repacked_copy`` (the same into fresh containers, leaving the source
 tree as it was). A whole model's plan comes from ``core.calibrate``.
-The kernel-granularity flow (``compress_kernel``: a traced kernel's
-values tuned, ranged and allocated to register slices) is not ported
-yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.allocator import Allocation, Operand, SliceAllocator
 from repro_torch.core.formats import ladder_snap, round_bits_to_slice
-from repro_torch.core.precision_tuning import tune_tensors
+from repro_torch.core.precision_tuning import (QuantizedKernel, tune_kernel,
+                                               tune_tensors)
 from repro_torch.core.quality import QualitySpec
-from repro_torch.core.range_analysis import Interval
+from repro_torch.core.range_analysis import TOP, Interval, RangeAnalysis
 from repro_torch.core.tensor_store import (is_packed, pack_tensor,
                                            repack_tensor, tree_map_with_path)
 
+
+# ---------------------------------------------------------------------------
+# Kernel granularity: per-SSA-value compression of an exported kernel
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KernelCompression:
+    """Everything Fig. 7 produces for one kernel."""
+
+    name: str
+    allocation: Allocation           # packed
+    baseline_pressure: int           # 32-bit registers, liveness-aware
+    packed_pressure: int
+    float_formats: Dict[int, int]    # vid -> bits
+    int_bits: Dict[str, Tuple[int, bool]]
+    tune_evals: int
+    operands: List[Operand] = dataclasses.field(default_factory=list)
+
+    def repressure(self, use_ints: bool, use_floats: bool,
+                   prefer_contiguous: bool = False) -> int:
+        """Register pressure with only one side of the framework active
+        (Fig. 9's isolated bars), liveness preserved."""
+        ops = [
+            dataclasses.replace(
+                o,
+                bits=o.bits if (o.is_float and use_floats)
+                or ((not o.is_float) and use_ints) else 32,
+            )
+            for o in self.operands
+        ]
+        return SliceAllocator(
+            prefer_contiguous=prefer_contiguous
+        ).allocate(ops).register_pressure
+
+    @property
+    def pressure_reduction(self) -> float:
+        return 1.0 - self.packed_pressure / max(self.baseline_pressure, 1)
+
+
+def _placeholders(kernel: QuantizedKernel
+                  ) -> Tuple[List[torch.fx.Node], List[torch.fx.Node]]:
+    """The graph's user inputs and its lifted constants, each in order
+    (the reference's invars and constvars)."""
+    from torch.export.graph_signature import InputKind
+
+    placeholders = [n for n in kernel.graph.nodes if n.op == "placeholder"]
+    pairs = list(zip(placeholders, kernel.input_kinds))
+    return ([n for n, k in pairs if k == InputKind.USER_INPUT],
+            [n for n, k in pairs if k != InputKind.USER_INPUT])
+
+
+def _liveness(kernel: QuantizedKernel) -> Dict[torch.fx.Node, Tuple[int, int]]:
+    """[def_point, last_use) of every value: the inputs and the lifted
+    constants at (0, 1), the t-th ``call_function`` node (from 1) at
+    (t, t + 1), each extended to one past its last use; the outputs live
+    to the end."""
+    user, lifted = _placeholders(kernel)
+    live: Dict[torch.fx.Node, Tuple[int, int]] = {
+        n: (0, 1) for n in user + lifted}
+    calls = [n for n in kernel.graph.nodes if n.op == "call_function"]
+    for t, node in enumerate(calls, start=1):
+        live[node] = (t, t + 1)
+        for a in node.all_input_nodes:
+            if a in live:
+                live[a] = (live[a][0], t + 1)
+    end = len(calls) + 1
+    for node in kernel.graph.nodes:
+        if node.op == "output":
+            for a in node.all_input_nodes:
+                if a in live:
+                    live[a] = (live[a][0], end)
+    return live
+
+
+def compress_kernel(
+    name: str,
+    fn: Callable,
+    samples: Sequence[Tuple],
+    quality: QualitySpec,
+    input_ranges: Optional[Sequence[Optional[Interval]]] = None,
+    prefer_contiguous: bool = False,
+    device: Optional[Union[str, torch.device]] = None,
+) -> KernelCompression:
+    """Run the whole static framework on one kernel, on ``device`` (the
+    card unless the caller names the CPU)."""
+    qk = QuantizedKernel(fn, *samples[0], device=device)
+    samples = [qk.to_device(s) for s in samples]
+
+    # 1. integer ranges (Section 4.2)
+    ra = RangeAnalysis(qk.program.graph_module)
+    ranges = list(input_ranges or [])
+    user, lifted = _placeholders(qk)
+    for i, node in enumerate(user):
+        ra._write(node, ranges[i] if i < len(ranges) and ranges[i] else TOP)
+    for node in lifted:
+        ra._write(node, TOP)
+    for node in qk.graph.nodes:
+        if node.op not in ("placeholder", "output"):
+            ra._transfer(node)
+
+    # 2. float precision tuning (Section 4.1)
+    tuned = tune_kernel(qk, samples, quality)
+
+    # 3. liveness and operands
+    operands: List[Operand] = []
+    int_bits: Dict[str, Tuple[int, bool]] = {}
+    idx = 0
+    for node, (start, end) in _liveness(qk).items():
+        val = node.meta.get("val")
+        if not isinstance(val, torch.Tensor):
+            continue
+        oname = f"v{idx}"
+        idx += 1
+        if val.is_floating_point():
+            bits = tuned.formats.get(qk.vid_of.get(node, -1), 32)
+            operands.append(Operand(name=oname, bits=bits, is_float=True,
+                                    signed=True, start=start, end=end))
+        elif not val.is_complex():           # integers and booleans
+            itv = ra.env.get(node, TOP)
+            b = itv.bits() if isinstance(itv, Interval) else None
+            bits, signed = b if b else (32, True)
+            bits = min(bits, 32)
+            int_bits[oname] = (bits, signed)
+            operands.append(Operand(name=oname, bits=bits, is_float=False,
+                                    signed=signed, start=start, end=end))
+
+    # 4. slice allocation (Section 4.3)
+    alloc = SliceAllocator(prefer_contiguous=prefer_contiguous).allocate(
+        operands)
+    return KernelCompression(
+        name=name,
+        allocation=alloc,
+        baseline_pressure=alloc.baseline_pressure,
+        packed_pressure=alloc.register_pressure,
+        float_formats=dict(tuned.formats),
+        int_bits=int_bits,
+        tune_evals=tuned.evaluations,
+        operands=operands,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Tensor granularity: the framework deployment plan
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class CompressionPlan:

@@ -17,6 +17,8 @@ from typing import Dict, Tuple
 import torch
 
 SLICE_BITS = 4                      # Section 3.2: slices are 4 bits
+REGISTER_BITS = 32                  # one physical (thread) register
+SLICES_PER_REGISTER = REGISTER_BITS // SLICE_BITS   # = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +53,7 @@ FLOAT_FORMATS: Dict[int, FloatFormat] = {
     8: FloatFormat("AF8", 3, 4),
 }
 FLOAT_LADDER: Tuple[int, ...] = (8, 12, 16, 20, 24, 28, 32)
+F32 = FLOAT_FORMATS[32]
 
 _INT32_MIN = -(1 << 31)
 
@@ -85,6 +88,22 @@ def int_bits_needed(lo: int, hi: int) -> Tuple[int, bool]:
     while not (-(1 << (b - 1)) <= lo and hi <= (1 << (b - 1)) - 1):
         b += 1
     return b, True
+
+
+def format_for_bits(bits: int) -> FloatFormat:
+    """The Table 3 format with the given total width."""
+    if bits not in FLOAT_FORMATS:
+        raise ValueError(f"no Table 3 float format with {bits} bits; choose "
+                         f"from {sorted(FLOAT_FORMATS)}")
+    return FLOAT_FORMATS[bits]
+
+
+def narrowest_at_least(bits: int) -> FloatFormat:
+    """Narrowest Table 3 format with total_bits >= bits."""
+    for b in FLOAT_LADDER:
+        if b >= bits:
+            return FLOAT_FORMATS[b]
+    return F32
 
 
 def _srl(u: torch.Tensor, k: int) -> torch.Tensor:
