@@ -191,6 +191,22 @@ Phases; any failure raises and the script exits non-zero:
    Table 1's occupancy chain, the area table, and Fig. 9, 10 and 12's
    numbers from the flow's pressures (the cycle-level model of the
    paper's Fermi SM, not a measurement of this card).
+3f. the static-analysis lint gate (``repro_torch.analysis``) on the
+   card: ``run_lint`` of qwen3-8b (cut to 4 layers) and deepseek-moe-16b
+   (2 layers) at full width, random weights from seed 0, the uniform
+   AF16 plan: each report one info finding from each of the five passes
+   (no warning: every entry point ran to its end, the donation pass's
+   trace did not fail) and valid for the port's validator, the
+   dispatch window's launches (zeroed just before, read just after)
+   covering B1-B5 and, for deepseek, B6, and the proven KV widths and
+   bounds (printed beside AF16's 65,504) those of the activation pass on
+   the CPU over the same leaves. The reduced configs linted on the card
+   and on the CPU from the same parameters: the same verdict, (check,
+   severity, path) findings, KV widths and bounds. The lint CLI on the
+   card, reduced qwen3-8b: the reference's broken plan exits 1 with its
+   4 plan_soundness errors on their paths, and ``--inject-fallback``
+   exits 1 with one "fell off the fused path" error finding (the card's
+   refusal of the operand, recorded). Reports land in build/lint/.
 4. cross-device parity, for each of the six models at 2 layers (the
    hybrid at 4: a group and a tail layer; whisper's encoder at 2) in
    f32: PARITY_STEPS decode_steps at full width on the card (kernels)
@@ -2946,6 +2962,192 @@ def flow_phase(torch, np, ops, ref):
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 3f: the static-analysis lint gate on the card
+# ---------------------------------------------------------------------------
+
+# the reference's broken plan (4 plan_soundness errors on reduced qwen3-8b)
+# and where the phase writes its reports (git-ignored)
+LINT_FIXTURE = ROOT / "tests" / "fixtures" / "broken_plan.json"
+LINT_OUT = ROOT / "build" / "lint"
+AF16_MAX = 65504.0               # AF16's max_finite (IEEE binary16's)
+# the kernels each model's lint window must launch (B1-B5; B6 for the banks)
+LINT_KERNELS = {"dense": ("packed_matmul", "pack", "kv_decode", "take_rows",
+                          "paged_attention"),
+                "moe": ("packed_matmul_batched",)}
+# a clean lint is one info finding from each pass, with every entry point
+# run to its end: a warning (an entry point that raised, a failed trace of
+# the donation pass) fails the phase
+LINT_PASSES = ("activation_width", "plan_soundness", "dispatch", "sharding",
+               "donation")
+LINT_ENTRY_POINTS = {"decode_step", "paged_decode_step", "prefill_step",
+                     "verify_step", "train_loss"}
+
+
+def _lint_triples(report):
+    from collections import Counter
+    return Counter((f.check, f.severity, f.path) for f in report.findings)
+
+
+def _lint_all_info(report, name: str) -> None:
+    """One info finding from each pass and nothing else, the dispatch
+    pass's naming every entry point as run to its end."""
+    found = sorted((f.check, f.severity) for f in report.findings)
+    if found != sorted((c, "info") for c in LINT_PASSES):
+        got = [(f.check, f.severity, f.message) for f in report.findings]
+        raise AssertionError(f"lint {name}: findings {got}, not one info "
+                             "from each pass")
+    (disp,) = [f for f in report.findings if f.check == "dispatch"]
+    traced = set((disp.detail or {}).get("traced", ()))
+    if traced != LINT_ENTRY_POINTS:
+        raise AssertionError(f"lint {name}: entry points run {sorted(traced)}"
+                             f", not {sorted(LINT_ENTRY_POINTS)}")
+
+
+def _lint_report_valid(report, name: str) -> None:
+    from repro_torch.obs.schema import validate_lint_report
+    LINT_OUT.mkdir(parents=True, exist_ok=True)
+    path = LINT_OUT / f"{name}.json"
+    report.save(str(path))
+    errors = validate_lint_report(str(path))[1]
+    if errors:
+        raise AssertionError(f"lint {name}: report invalid: {errors}")
+
+
+def lint_full_width(torch, ops, cfg):
+    """``run_lint`` on the card at full width, cut to TRAIN_LAYERS, over
+    random weights from seed 0 and the uniform AF16 plan: clean, valid,
+    the window's kernels launched, and the proven KV widths and bounds
+    those of the activation pass on the CPU over the same leaves."""
+    from repro_torch.analysis.activations import infer_kv_widths
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.analysis.sharding_lint import decode_program
+    from repro_torch.models.lm import LM
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[cfg.name])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = LM(small, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_program(small)           # the donation pass's trace, on the host
+    trace_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = run_lint(small, cfg.name, params=params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    _lint_all_info(report, cfg.name)
+    _lint_report_valid(report, cfg.name)
+    missing = [k for fam in sorted({"dense", cfg.family})
+               for k in LINT_KERNELS.get(fam, ()) if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"lint {cfg.name}: the window launched no "
+                             f"{missing}: {counts}")
+    attn = params["blocks"]["attn"]
+    cpu = {"blocks": {"attn": {k: attn[k].cpu() for k in
+                               ("ln", "wk", "wv", "k_norm") if k in attn}}}
+    bits, bounds, _ = infer_kv_widths(small, params=cpu)
+    if (bits, bounds) != (report.kv_bits, report.kv_bounds):
+        raise AssertionError(f"lint {cfg.name}: card kv widths/bounds "
+                             f"{report.kv_bits} {report.kv_bounds} != "
+                             f"CPU {bits} {bounds}")
+    log("lint: " + json.dumps({
+        "model": cfg.name, "layers": small.n_layers,
+        "donation_trace_s": round(trace_s, 2),
+        "seconds_after_trace": round(secs, 2),
+        "findings": len(report.findings), "clean": report.clean,
+        "kv_bits": report.kv_bits, "kv_bounds": report.kv_bounds,
+        "af16_max_finite": AF16_MAX,
+        "launches": {k: v for k, v in counts.items() if v}}))
+    del params
+    return counts
+
+
+def lint_reduced(torch, ops, cfg):
+    """The reduced config linted on the card and on the CPU from the
+    same parameters: the same verdicts, findings (check, severity,
+    path), KV widths and bounds."""
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.core.tensor_store import tree_to
+    from repro_torch.models.lm import LM
+
+    small = cfg.reduced()
+    params = LM(small, device="cpu").init()
+    t0 = time.perf_counter()
+    card = run_lint(small, cfg.name, params=tree_to(params, "cuda"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = run_lint(small, cfg.name, device="cpu", params=params)
+    log(f"lint {small.name}: card {t1 - t0:.2f} s (the donation trace "
+        f"included), CPU {time.perf_counter() - t1:.2f} s")
+    for what, a, b in (("clean", card.clean, cpu.clean),
+                       ("findings", _lint_triples(card), _lint_triples(cpu)),
+                       ("kv_bits", card.kv_bits, cpu.kv_bits),
+                       ("kv_bounds", card.kv_bounds, cpu.kv_bounds)):
+        if a != b:
+            raise AssertionError(f"lint {small.name}: card {what} {a} != "
+                                 f"CPU {b}")
+    _lint_all_info(card, small.name)
+    return card
+
+
+def lint_negative_legs(cfg):
+    """The CLI on the card, reduced config: the broken plan exits 1 with
+    the reference's 4 plan_soundness errors on their paths;
+    ``--inject-fallback`` exits 1 with a "fell off the fused path" error
+    finding (the card's refusal, recorded), not an exception."""
+    from repro_torch.analysis import lint
+    from repro_torch.obs.schema import validate_lint_report
+
+    arch = cfg.name.replace("-", "_")
+    LINT_OUT.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for leg, extra in (("broken_plan", ["--plan", str(LINT_FIXTURE)]),
+                       ("inject_fallback", ["--inject-fallback"])):
+        path = LINT_OUT / f"{arch}_{leg}.json"
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = lint.main(["--arch", arch, "--out", str(path), *extra])
+        if rc != 1:
+            raise AssertionError(f"lint {leg}: exit {rc}, not 1")
+        if validate_lint_report(str(path))[1]:
+            raise AssertionError(f"lint {leg}: report invalid")
+        findings = json.loads(path.read_text())["findings"]
+        if any(f["severity"] == "warning" for f in findings):
+            raise AssertionError(f"lint {leg}: warnings in {findings}")
+        out[leg] = [f for f in findings if f["severity"] == "error"]
+    paths = sorted(f["path"] for f in out["broken_plan"])
+    if paths != ["embed", "inputs/tokens", "kv/layer_0", "kv/layer_99"] or \
+            {f["check"] for f in out["broken_plan"]} != {"plan_soundness"}:
+        raise AssertionError(f"lint broken plan: errors {paths}")
+    fell = [f for f in out["inject_fallback"]
+            if "fell off the fused path" in f["message"]]
+    if len(fell) != 1 or fell[0]["detail"]["spec"] != "...b,ab->...a":
+        raise AssertionError(f"lint inject: {out['inject_fallback']}")
+    log(f"lint negative legs (card): broken plan {paths}; inject-fallback "
+        f"{json.dumps(fell[0]['detail'])}, {len(out['inject_fallback'])} "
+        "error(s)")
+
+
+def lint_phase(torch, ops, qwen, moe):
+    """Phase 3f. Returns {"launches": by run}."""
+    t0 = time.perf_counter()
+    launches = {f"{cfg.name} lint": lint_full_width(torch, ops, cfg)
+                for cfg in (qwen, moe)}
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    for cfg in (qwen, moe):
+        lint_reduced(torch, ops, cfg)
+    lint_negative_legs(qwen)
+    launches["lint reduced and negative legs"] = ops.launch_counts()
+    log(f"lint: {time.perf_counter() - t0:.1f} s (full width "
+        f"{t1 - t0:.1f} s); reduced card == CPU for {qwen.name}, "
+        f"{moe.name}")
+    return {"launches": launches}
+
+
 def parity(torch, np, cfg):
     """PARITY_STEPS decode steps of ``cfg`` cut to 2 layers (the hybrid
     to 4: one group of 2 RG-LRU layers and an attention layer, and one
@@ -3605,6 +3807,8 @@ def main() -> int:
     flow = flow_phase(torch, np, ops, ref)
     launches.update(flow["launches"])
     log(f"ran the kernel flow ({time.perf_counter() - t_start:.0f} s so far)")
+    launches.update(lint_phase(torch, ops, qwen, moe)["launches"])
+    log(f"linted ({time.perf_counter() - t_start:.0f} s so far)")
     for cfg in (qwen, moe, *fams):
         parity(torch, np, cfg)
     for cfg in (qwen, moe, whisper):

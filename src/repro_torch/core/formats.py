@@ -15,6 +15,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+from torch.fx._symbolic_trace import is_fx_symbolic_tracing
 
 SLICE_BITS = 4                      # Section 3.2: slices are 4 bits
 REGISTER_BITS = 32                  # one physical (thread) register
@@ -40,6 +41,16 @@ class FloatFormat:
     @property
     def max_biased_exp(self) -> int:
         return (1 << self.exp_bits) - 1
+
+    @property
+    def max_finite(self) -> float:
+        """Largest finite magnitude the format represents: the overflow
+        threshold the static activation-width analysis proves bounds
+        against (a planned width whose max_finite is below a value's
+        proven magnitude bound would silently clip to inf)."""
+        m = self.mantissa_bits
+        return float((2.0 - 2.0 ** -m) * 2.0 ** (self.max_biased_exp - 1
+                                                 - self.bias))
 
 
 # Table 3: total bits -> (exponent bits, mantissa bits); sign bit implied.
@@ -201,10 +212,12 @@ def half_to_f32(lanes: torch.Tensor) -> torch.Tensor:
     exact: float16 lanes of AF16 codes, converted, NaNs then made
     canonical (sign | 0x7FC00000) as the general decode makes them. On
     the CPU only where there are any; on the card always, as the check
-    would wait for the device."""
+    would wait for the device; under a trace (``torch.export``,
+    ``make_fx``) always, as the check would be a branch on data."""
     out = lanes.to(torch.float32)
     nan = torch.isnan(out)
-    if lanes.device.type != "cpu" or bool(nan.any()):
+    if (lanes.device.type != "cpu" or torch.compiler.is_compiling()
+            or is_fx_symbolic_tracing() or bool(nan.any())):
         bits = torch.where(lanes.view(torch.int16) < 0,
                            _INT32_MIN | 0x7FC00000, 0x7FC00000)
         out = torch.where(nan, bits.to(torch.int32).view(torch.float32), out)

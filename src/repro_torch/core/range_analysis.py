@@ -244,6 +244,15 @@ def _numel(shape: Sequence[int], dims=None) -> int:
     return n
 
 
+def op_name(target) -> str:
+    """An ATen op's name without its overload, in-place variants under
+    their functional name (``index_put_`` -> ``index_put``)."""
+    name = getattr(target, "_opname", getattr(target, "__name__", ""))
+    if name.endswith("_") and not name.startswith("__"):
+        name = name[:-1]
+    return name
+
+
 _PASS = frozenset({
     # shape and data movement: values unchanged (the reference's
     # broadcast_in_dim, reshape, transpose, squeeze, expand_dims, slice,
@@ -302,10 +311,7 @@ class RangeAnalysis:
         if isinstance(target, torch._ops.HigherOrderOperator):
             self._transfer_hop(node, target.name())
             return
-        name = getattr(target, "_opname", getattr(target, "__name__", ""))
-        if name.endswith("_") and not name.startswith("__"):
-            name = name[:-1]                         # in-place variants
-        self._write(node, self._aten(node, name,
+        self._write(node, self._aten(node, op_name(target),
                                      getattr(target, "_overloadname", "")))
 
     def _aten(self, node, op: str, overload: str):

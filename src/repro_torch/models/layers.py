@@ -29,7 +29,8 @@ packed-master training mode) and the dispatch is the reference's:
     ``embed`` cannot hand to a kernel (int-kind leaves, the wrong rank,
     other specs) decodes in full through ``unpack_maybe`` on the CPU,
     where that is the plain version of the kernel. On the card it
-    raises: no kernel computes it.
+    raises ``FusedPathRefused`` (a ``NotImplementedError``): no kernel
+    computes it.
   * Packed norm scales (and the conv and recurrent diagonals) decode
     through ``unpack_maybe``, as in the reference (a materialized
     decode, no kernel); an ``STWeight`` one decodes straight through:
@@ -113,16 +114,29 @@ def _warn_unfused_spec(spec: str) -> None:
         "unpack path", stacklevel=3)
 
 
+class FusedPathRefused(NotImplementedError):
+    """A packed weight that no kernel takes, refused on the card. It
+    carries the fields of the fallback record the CPU keeps (``op``,
+    ``spec``, ``shape``, ``bits``, ``reason``), so that a caller auditing
+    dispatch (``analysis.dispatch``) can record it as one."""
+
+    def __init__(self, op: str, spec: str, shape, bits: int, reason: str,
+                 kind: str):
+        super().__init__(
+            f"{op}: packed {kind} weight {tuple(shape)} at {bits} bits "
+            f"with spec {spec!r} has no kernel path on the card ({reason})")
+        self.op, self.spec, self.reason = op, spec, reason
+        self.shape, self.bits = tuple(shape), bits
+
+
 def _record_unfused(op: str, spec: str, w, x: torch.Tensor) -> None:
     """A packed weight off the kernel path: recorded (and warned about,
     for an odd spec) on the CPU, refused on the card."""
     nspec = _normalize_spec(spec)
     reason = "unrecognized_spec" if _fusable(w) else "not_fusable"
     if x.is_cuda:
-        raise NotImplementedError(
-            f"{op}: packed {w.kind} weight {tuple(w.logical_shape)} at "
-            f"{w.bits} bits with spec {nspec!r} has no kernel path on the "
-            f"card ({reason})")
+        raise FusedPathRefused(op, nspec, w.logical_shape, w.bits, reason,
+                               w.kind)
     kops.record_fallback(op, spec=nspec, shape=w.logical_shape,
                          bits=w.bits, reason=reason)
     if reason == "unrecognized_spec":

@@ -9,8 +9,10 @@ none, and launchers attach a JSONL sink to a fresh tracer for
 ``serve.metrics`` snapshots, the trainer the reference's ``train.step``
 / ``train.repack`` / ``train.metrics`` events (``obs.schema``, whose
 ``validate_metrics_jsonl`` checks such a stream; ``python -m
-repro_torch.obs.validate`` on the command line). ``console_summary``
-renders the registry as a table, ``read_jsonl`` reads a stream back.
+repro_torch.obs.validate`` on the command line; ``--lint`` checks the
+reports of ``repro_torch.analysis`` with ``validate_lint_report``).
+``console_summary`` renders the registry as a table, ``read_jsonl``
+reads a stream back.
 """
 from __future__ import annotations
 
@@ -22,11 +24,14 @@ from repro_torch.obs.registry import (  # noqa: F401
     MetricsRegistry,
 )
 from repro_torch.obs.schema import (  # noqa: F401
+    LINT_FINDING_KEYS,
+    LINT_REPORT_KEYS,
     TRAIN_FINAL_KEYS,
     TRAIN_STEP_EVENT_KEYS,
     check_byte_parity,
     drain_keys,
     snapshot_keys,
+    validate_lint_report,
     validate_metrics_jsonl,
 )
 from repro_torch.obs.trace import Tracer  # noqa: F401

@@ -1,7 +1,7 @@
-"""The metrics schema: the key sets and the JSONL stream validator.
+"""The metrics and lint schemas: the key sets and the validators.
 
-A copy of ``repro.obs.schema``'s serving and training halves. The
-port's ``ServeEngine.metrics_snapshot()`` emits exactly
+A copy of ``repro.obs.schema``. The port's
+``ServeEngine.metrics_snapshot()`` emits exactly
 ``snapshot_keys(paged)`` and ``SpeculativeEngine``'s
 ``snapshot_keys(paged, speculative=True)`` (tests hold them to the
 reference's sets); ``run_until_drained`` adds ``DRAIN_EXTRA_KEYS``, and
@@ -13,8 +13,12 @@ fused_analytic_bytes_per_pass`` (the bits/32 model summed per packed
 leaf) within ``BYTE_TOLERANCE``; group-of-32 padding is the only slack.
 ``validate_metrics_jsonl`` holds a ``--metrics-out`` stream's final
 snapshot to its mode's key set and to that invariant, for the target
-and, when speculative, the draft. The lint-report half waits for the
-port of ``repro.analysis``.
+and, when speculative, the draft.
+
+The lint half: ``validate_lint_report`` holds a ``repro_torch.analysis
+.lint --out`` report (or the reference's: the schema is the same) to
+``LINT_REPORT_KEYS``, each finding to ``LINT_FINDING_KEYS``, and its
+``clean`` and ``counters`` to a recount of its findings.
 """
 from __future__ import annotations
 
@@ -78,6 +82,18 @@ TRAIN_FINAL_KEYS = frozenset({
 })
 #: further drain extras when the adaptive controller is on
 DRAIN_EXTRA_KEYS_ADAPTIVE = frozenset({"adaptive", "retune_events"})
+
+
+#: top-level keys of a schema-v1 lint report
+LINT_REPORT_KEYS = frozenset({
+    "version", "arch", "clean", "passes", "findings", "counters",
+    "kv_bits", "kv_bounds",
+})
+
+#: keys every serialized lint finding carries
+LINT_FINDING_KEYS = frozenset({
+    "check", "severity", "message", "path", "detail",
+})
 
 
 def snapshot_keys(paged: bool = False,
@@ -229,4 +245,60 @@ def validate_metrics_jsonl(path: str) -> Tuple[Dict[str, int], List[str]]:
         if missing:
             errors.append(f"train.metrics missing keys: {sorted(missing)}")
         errors.extend(check_byte_parity(last_train))
+    return counts, errors
+
+
+def validate_lint_report(path: str) -> Tuple[Dict[str, int], List[str]]:
+    """Validate one lint report artifact.
+
+    Checks the exact schema-v1 key set, the finding record shape, that
+    ``clean`` agrees with the findings (a report claiming clean while
+    carrying an error finding is itself a failure), and that ``counters``
+    matches a recount. Returns ``(counts, errors)`` like
+    ``validate_metrics_jsonl``."""
+    errors: List[str] = []
+    counts = {"findings": 0, "errors": 0, "warnings": 0, "infos": 0}
+    try:
+        with open(path) as f:
+            rep = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        return counts, [f"cannot read {path}: {e}"]
+    if not isinstance(rep, dict):
+        return counts, ["lint report is not a JSON object"]
+    got = set(rep)
+    if got != LINT_REPORT_KEYS:
+        extra, missing = got - LINT_REPORT_KEYS, LINT_REPORT_KEYS - got
+        if missing:
+            errors.append(f"lint report missing keys: {sorted(missing)}")
+        if extra:
+            errors.append(f"lint report unexpected keys: {sorted(extra)}")
+        return counts, errors
+    if rep["version"] != 1:
+        errors.append(f"unknown lint report version {rep['version']!r}")
+    recount: Dict[str, int] = {}
+    n_err = 0
+    for i, f in enumerate(rep["findings"]):
+        if not isinstance(f, dict) or set(f) != LINT_FINDING_KEYS:
+            errors.append(f"finding {i}: wrong keys "
+                          f"{sorted(f) if isinstance(f, dict) else f}")
+            continue
+        counts["findings"] += 1
+        sev = f["severity"]
+        if sev not in ("error", "warning", "info"):
+            errors.append(f"finding {i}: unknown severity {sev!r}")
+            continue
+        counts[sev + "s"] += 1
+        n_err += sev == "error"
+        key = f"{f['check']}/{sev}"
+        recount[key] = recount.get(key, 0) + 1
+    if bool(rep["clean"]) != (n_err == 0):
+        errors.append(
+            f"clean={rep['clean']} but the report carries {n_err} "
+            "error finding(s)")
+    if rep["counters"] != recount:
+        errors.append(
+            f"counters {rep['counters']} disagree with a recount "
+            f"{recount}")
+    if not rep["passes"]:
+        errors.append("no passes recorded")
     return counts, errors

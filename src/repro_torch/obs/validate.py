@@ -1,39 +1,46 @@
-"""Validate ``--metrics-out`` JSONL streams.
+"""Validate ``--metrics-out`` JSONL streams and lint reports.
 
     python -m repro_torch.obs.validate metrics.jsonl [more.jsonl ...]
+    python -m repro_torch.obs.validate --lint report.json [more.json ...]
 
 Exits 1 when any stream is empty, malformed, off its mode's key set, or
-fails the byte-accounting invariants (``obs.schema``, where the checks
-live so that tests and this command agree). ``--lint`` (the reference's
-static-analysis report check) waits for the port of ``repro.analysis``
-and exits 2 with a usage message.
+fails the byte-accounting invariants. ``--lint`` switches to the
+static-analysis report schema (``repro_torch.analysis.lint --out``
+artifacts, and the reference's, which share it): the exact key set, the
+finding shape, and internal consistency (``clean`` against the error
+findings, ``counters`` against a recount). The checks live in
+``obs.schema``, so that tests and this command agree.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from repro_torch.obs.schema import validate_metrics_jsonl
+from repro_torch.obs.schema import validate_lint_report, validate_metrics_jsonl
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("paths", nargs="+", metavar="PATH")
     ap.add_argument("--lint", action="store_true",
-                    help="validate lint reports (not ported yet)")
+                    help="validate lint report JSON artifacts instead of "
+                         "metrics JSONL streams")
     args = ap.parse_args(argv)
-    if args.lint:
-        ap.error("--lint checks the reports of repro.analysis, which the "
-                 "port does not have yet (ROADMAP A14b, the analysis "
-                 "slice); only metrics streams are validated")
 
     failed = 0
     for path in args.paths:
-        counts, errors = validate_metrics_jsonl(path)
-        status = "OK" if not errors else "FAIL"
-        print(f"{path}: {status} — {counts['records']} records "
-              f"({counts['spans']} spans, {counts['events']} events, "
-              f"{counts['metrics_events']} metrics events)")
+        if args.lint:
+            counts, errors = validate_lint_report(path)
+            status = "OK" if not errors else "FAIL"
+            print(f"{path}: {status} — {counts['findings']} findings "
+                  f"({counts['errors']} errors, {counts['warnings']} "
+                  f"warnings, {counts['infos']} infos)")
+        else:
+            counts, errors = validate_metrics_jsonl(path)
+            status = "OK" if not errors else "FAIL"
+            print(f"{path}: {status} — {counts['records']} records "
+                  f"({counts['spans']} spans, {counts['events']} events, "
+                  f"{counts['metrics_events']} metrics events)")
         for err in errors:
             print(f"  {err}", file=sys.stderr)
         failed += bool(errors)

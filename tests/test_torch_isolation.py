@@ -44,6 +44,7 @@ def test_no_jax_and_no_reference_imports():
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from repro_torch.analysis import lint
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.lm import LM
@@ -57,6 +58,10 @@ def test_entry_points_raise_without_a_card():
         serve.main(["--arch", "qwen3_8b", "--reduced"])
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lint.run_lint(cfg, "qwen3_8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lint.main(["--arch", "qwen3_8b"])
 
 
 def test_cpu_serving_when_asked():

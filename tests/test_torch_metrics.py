@@ -12,7 +12,7 @@
     the reference's ``validate_metrics_jsonl``; the byte checks agree
     on the stream's snapshots, and on broken ones;
   * a training stream (``Trainer`` with ``metrics_out``) valid for both
-    validators; ``--lint`` exits 2, not ported yet.
+    validators; ``--lint`` validates a port lint report.
 """
 from __future__ import annotations
 
@@ -186,8 +186,22 @@ def test_train_stream_validates_for_port_and_reference(tmp_path):
     assert check_byte_parity(metrics) == []
 
 
-def test_lint_reports_not_ported_yet(capsys):
-    with pytest.raises(SystemExit) as e:
-        validate_cli.main(["--lint", "report.json"])
-    assert e.value.code == 2
-    assert "repro.analysis" in capsys.readouterr().err
+def test_lint_validates_a_port_report(tmp_path, capsys):
+    """``--lint`` checks ``repro_torch.analysis`` reports: a port report
+    is valid for the port's validator and for the reference's."""
+    from repro.obs.schema import validate_lint_report as ref_validate_lint
+
+    from repro_torch.analysis.report import Finding, LintReport
+    rep = LintReport(arch="qwen3_8b", passes=["dispatch"],
+                     kv_bits={"kv/layer_0": 16},
+                     kv_bounds={"kv/layer_0": 473.25})
+    rep.extend([Finding(check="dispatch", severity="info", message="ok"),
+                Finding(check="sharding", severity="warning", message="w",
+                        path="embed", detail={"tp": 2})])
+    path = str(tmp_path / "report.json")
+    rep.save(path)
+    assert validate_cli.main(["--lint", path]) == 0
+    assert f"{path}: OK — 2 findings (0 errors, 1 warnings, 1 infos)" \
+        in capsys.readouterr().out
+    assert ref_validate_lint(path) == (
+        {"findings": 2, "errors": 0, "warnings": 1, "infos": 1}, [])
