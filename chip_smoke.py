@@ -88,6 +88,20 @@ Phases; any failure raises and the script exits non-zero:
    w_up shape: each held to its plain version (pack and unpack bit for
    bit) and timed beside its bound and library call (``train`` in the
    kernels line, with ``calls_per_train_step``).
+2f. the five zoo configs' decode ticks (``check_zoo``, ``ZOO_ARCHS`` at
+   phase 3g's depths and shapes, bf16 activations): every packed
+   product, the KV append, kv_decode and the embedding gather of the
+   tick (``check_family``), paged_attention (``zoo_paged_cases``: a
+   check case up to 4,096 rows and the drain's tick), arctic-480b's
+   expert banks at E = 128 and its decode capacity (C = 1); and at the
+   new shapes' other widths: the drafts' whole weight pass (phi3-medium-
+   14b AF12, stablelm-12b AF8), kv_decode on AF12 (timed), AF8 and AF32
+   (checked) caches of the dense three, paged_attention on AF12, AF8 and
+   bf16 rows, the append at all 7 widths for stablelm-12b's head_dim
+   160 (80 words a head at AF16). paper_native's one kernel is
+   paged_attention on bf16 rows (head_dim 64, 2 query heads a KV head).
+   Each held to its plain version, timed beside its bound and library
+   call (``per_tick_by_model`` in the kernels line).
 3. serve full-width qwen3-8b (36 layers, bf16, AF16 weights and AF16 KV,
    random weights from a torch.Generator packed leaf by leaf on the
    card), 8 slots, max_seq_len 256, shared-prefix traffic (8 requests
@@ -119,6 +133,18 @@ Phases; any failure raises and the script exits non-zero:
    and unpack, convert and truncate not at all; the drain's last
    decode call is replayed under torch.profiler, as it runs and with
    the append as the eager composition, to count its device launches.
+3g. the five zoo configs (``zoo_phase``), after the other drains:
+   phi3-medium-14b (40 layers) and stablelm-12b (40) dense, paged and
+   speculatively with their drafts (AF12, AF8; k = SPEC_K, dense KV);
+   granite-34b at all 88 layers and arctic-480b cut to 2 of its 35, dense
+   and paged; paper_native (plain bf16 weights and KV, no packing) dense
+   and paged. 8 requests of 4-12 tokens (numpy seed 0), 4 new tokens,
+   max_seq_len 64; the packing engines draw their weights slice by slice
+   straight into the packed words. The tokens must agree across modes,
+   each drain's launches be its path's (paper_native's dense path runs
+   no kernel; its paged one, paged_attention on bf16 rows) and every
+   peak stay under ZOO_PEAK_GB; ms per tick, host issue, launches a
+   decode call, prefill s and peak memory printed per drain.
 3b. after each model's drains, on the same engine's weights: ``LM.prefill``
    and then ``LM.loss`` of a batch of B = 2, T = 512 text tokens
    (whisper: T = 256 over 1,500 frames; paligemma adds its 256 image
@@ -213,7 +239,9 @@ Phases; any failure raises and the script exits non-zero:
    against the CPU (plain versions) with the same packed weights,
    whisper over a cross cache of random values, then ``prefill`` and
    ``loss`` of one sequence of 64 tokens (the same tolerance, argmax
-   equal); for deepseek also the number of routing choices
+   equal); also the five zoo configs (arctic-480b at ZOO_PARITY_EXPERTS
+   of its 128 experts; paper_native with its plain weights and KV); for
+   deepseek and arctic also the number of routing choices
    (token, k) that differ between the two; for qwen3's reduced config
    (2 layers, f32) also the paged engine, card against CPU: the same
    tokens and pool counters, and every decode call of the card's drain
@@ -291,6 +319,22 @@ MOE_PROMPTS, MOE_NEW_TOKENS, MOE_MAX_SEQ = (8, 32), 8, 64
 # lengths, new tokens and max_seq_len); paligemma also paged
 FAMILY_ARCHS = ("paligemma_3b", "whisper_small", "falcon_mamba_7b",
                 "recurrentgemma_9b")
+# phases 2f, 3g and 4: the five zoo configs, each drained on 8 requests
+# of (prompt lengths from, to) tokens, new tokens, max_seq_len;
+# arctic-480b cut to ZOO_LAYERS of its 35 layers (all 35 take 954 GB at
+# AF16), the others at full depth (granite-34b's 88 layers through the
+# packed init, held under ZOO_PEAK_GB); the speculating configs and
+# their draft widths (granite-34b's AF12 draft would not fit beside its
+# 68 GB: it speculates on the CPU only); phase 4's arctic at
+# ZOO_PARITY_EXPERTS of its 128 experts (f32 at full width holds two
+# copies of ~13 B expert parameters a layer otherwise)
+ZOO_ARCHS = ("phi3_medium_14b", "stablelm_12b", "granite_34b", "arctic_480b",
+             "paper_native")
+ZOO_PROMPTS, ZOO_NEW_TOKENS, ZOO_MAX_SEQ = (4, 12), 4, 64
+ZOO_LAYERS = {"arctic-480b": 2}
+ZOO_DRAFTS = {"phi3-medium-14b": 12, "stablelm-12b": 8}
+ZOO_PEAK_GB, ZOO_PARITY_EXPERTS = 80.0, 16
+BANK_CHUNK = 2**31                # f32 bytes of a bank decoded at once
 BF16_TOL = 2.0 ** -8             # one bf16 rounding of the f32 result
 FLOAT_MANTISSA = {16: 10, 12: 7}  # AF16 e5m10, AF12 e4m7
 
@@ -781,9 +825,9 @@ def kv_case(torch, F, ops, ref, gen, model, h, hkv, d, seq, lens, bits,
 def check_kv_decode(torch, F, ops, ref, gen, cfg, seq):
     """q (slots, heads, head_dim) bf16 against an AF16 cache of ``seq``
     rows (the drain's max_seq_len), mixed lengths including 0 and one
-    past S; timed there. For qwen3-8b also an AF12 cache of the same
-    shape (the speculative draft's), timed, and AF8 and AF32 caches,
-    checked only (no tick runs them)."""
+    past S; timed there. For a dense config (qwen3-8b, phase 2f's three)
+    also an AF12 cache of the same shape (the speculative draft's),
+    timed, and AF8 and AF32 caches, checked only (no tick runs them)."""
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     lens = [0, 1, 7, seq // 4, seq * 25 // 64, seq * 25 // 32, seq, seq + 3]
     per_call, per_width = [], {}
@@ -857,18 +901,23 @@ def paged_cases(cfg):
              cfg.n_layers, (16, 12))]
 
 
-def check_paged_attention(torch, F, ops, ref, gen, cfg):
+def check_paged_attention(torch, F, ops, ref, gen, cfg, cases=None):
     """q (slots, heads, head_dim) bf16 through a page table of shuffled
-    ids over AF16, AF8 and bf16-row pools (page 16) in ``paged_cases``;
-    the scrap page holds large finite poison. Held to the plain version
-    within tolerance, bit for bit to kv_decode over the same rows laid
-    out dense, and to itself with a clean scrap page. Timed at AF16 and
-    AF12 beside the plain version, SDPA and the bound."""
+    ids over AF16, AF8 and bf16-row pools (page 16) in ``cases``
+    (``paged_cases``' by default); the scrap page holds large finite
+    poison. Held to the plain version within tolerance, bit for bit to
+    kv_decode over the same rows laid out dense, and to itself with a
+    clean scrap page. Timed at AF16 and AF12, and the tick case at every
+    width it lists, beside the plain version, SDPA and the bound; the
+    calls a tick are the tick case's at the config's KV width (0: bf16
+    rows)."""
     import numpy as np
 
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kv_bits = cfg.compression.kv_bits or 0
     per_call, per_width = [], {}
-    for name, lens, max_pages, shared, calls, widths in paged_cases(cfg):
+    for name, lens, max_pages, shared, calls, widths in (
+            cases or paged_cases(cfg)):
         table_np, pool_pages, n_live = _paged_layout(np, lens, PAGE,
                                                      max_pages, shared)
         table = torch.from_numpy(table_np).cuda()
@@ -914,10 +963,10 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
                             "case": name, "bits": bits, "q": list(q.shape),
                             "max_err": err, "tol": tol,
                             "bit_identical_to_kv_decode": bool(bits)}))
-            if bits not in (12, 16):
+            if bits not in (12, 16) and name != "tick":
                 per_call.append({"max_err": err, "calls_per_tick": 0})
                 continue
-            page_bytes = PAGE * hkv * kp.shape[-1] * 4
+            page_bytes = PAGE * hkv * kp.shape[-1] * kp.element_size()
             pool_bytes = 2 * pool_pages * page_bytes
             reps = [(kp, vp)] + [(kp.clone(), vp.clone())
                                  for _ in range(copies_for(pool_bytes) - 1)]
@@ -928,8 +977,9 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
             plain = time_ms(torch, [lambda: ref.paged_attention_ref(
                 q, kp, vp, table, kv_len, bits, d)], 10)[0]
             group = h // hkv
-            kd, vd = (ref.unpack_ref(ref.gather_pages_ref(x, table), bits, d,
-                                     torch.bfloat16).transpose(1, 2)
+            kd, vd = ((ref.unpack_ref(ref.gather_pages_ref(x, table), bits,
+                                      d, torch.bfloat16) if bits
+                       else ref.gather_pages_ref(x, table)).transpose(1, 2)
                       .repeat_interleave(group, dim=1).contiguous()
                       for x in (kp, vp))
             seq = kd.shape[2]
@@ -948,14 +998,14 @@ def check_paged_attention(torch, F, ops, ref, gen, cfg):
                    "page": PAGE,
                    "max_pages": table.shape[1], "kv_len": lens,
                    "live_pages": n_live, "rows_read": rows_read,
-                   "calls_per_tick": calls if bits == 16 else 0,
+                   "calls_per_tick": calls if bits == kv_bits else 0,
                    "max_err": err, "tol": tol, "kernel_ms": ms,
                    "host_issue_ms": issue, "plain_ms": plain,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
             log(json.dumps(rec))
             per_call.append(rec)
-            if bits == 12:
-                per_width[f"AF12 {name}"] = width_summary(
+            if bits != kv_bits:
+                per_width[f"AF{bits} {name}"] = width_summary(
                     [dict(rec, calls=1)], "calls")
             del reps, kd, vd
         del rows, pools
@@ -1093,19 +1143,39 @@ def _take_many_rows(torch, F, ops, ref, gen, cfg, table, dec,
     return rec
 
 
+def _by_experts(torch, fn, e, per_expert_bytes):
+    """``fn(e0, e1)`` over experts [e0, e1) in runs of about BANK_CHUNK
+    bytes, concatenated along the expert axis: a plain decode of a whole
+    128-expert bank (arctic-480b's 8.9 GB a leaf) would take several
+    times its f32 size at once."""
+    step = max(1, BANK_CHUNK // max(per_expert_bytes, 1))
+    return torch.cat([fn(e0, min(e0 + step, e)) for e0 in range(0, e, step)])
+
+
 def batched_case(torch, ops, ref, gen, model, e, c, k, n, calls, transpose,
                  xdt, prefill_calls=0, train_calls=0):
     """One bank product x (E, C, K) @ W[e] at AF16, W (E, K, N), or
     (E, N, K) packed along K when ``transpose``: held to the plain
     version, timed with W rotated past the L2, beside the plain version,
-    torch.bmm on the decoded bf16 banks and the bound."""
+    torch.bmm on the decoded bf16 banks and the bound. The bank is drawn,
+    decoded and the plain version run a run of experts at a time
+    (``_by_experts``)."""
     wshape = (e, n, k) if transpose else (e, k, n)
-    wp = ops.pack(torch.randn(wshape, generator=gen, device="cuda")
-                  / math.sqrt(k), 16)
-    w_lib = ref.unpack_ref(wp, 16, k if transpose else n).to(torch.bfloat16)
+    slice_bytes = k * n * 4
+    wp = _by_experts(torch, lambda e0, e1: ops.pack(
+        torch.randn((e1 - e0,) + wshape[1:], generator=gen, device="cuda")
+        / math.sqrt(k), 16), e, slice_bytes)
+    w_lib = _by_experts(torch, lambda e0, e1: ref.unpack_ref(
+        wp[e0:e1], 16, k if transpose else n).to(torch.bfloat16), e,
+        slice_bytes)
     x = torch.randn((e, c, k), generator=gen, device="cuda").to(xdt)
+
+    def plain():
+        return _by_experts(torch, lambda e0, e1: ref.packed_matmul_batched_ref(
+            x[e0:e1], wp[e0:e1], 16, n, transpose), e, slice_bytes)
+
     got = ops.packed_matmul_batched(x, wp, 16, n, transpose)
-    want = ref.packed_matmul_batched_ref(x, wp, 16, n, transpose)
+    want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want).abs().max().item()
     scale = want.abs().max().item()
@@ -1123,8 +1193,7 @@ def batched_case(torch, ops, ref, gen, model, e, c, k, n, calls, transpose,
     calls_k = [lambda r=r: ops.packed_matmul_batched(x, r, 16, n, transpose)
                for r in reps]
     ms, issue = time_ms(torch, calls_k, 30)
-    plain = time_ms(torch, [lambda: ref.packed_matmul_batched_ref(
-        x, wp, 16, n, transpose)], 3)[0]
+    plain_ms = time_ms(torch, [plain], 3)[0]
     xb = x.to(torch.bfloat16)
     lib = time_ms(torch, [lambda r=r: torch.bmm(
         xb, r.transpose(1, 2) if transpose else r) for r in libs], 30)[0]
@@ -1136,7 +1205,7 @@ def batched_case(torch, ops, ref, gen, model, e, c, k, n, calls, transpose,
            "x_dtype": str(xdt).split(".")[-1], "calls_per_tick": calls,
            "calls_per_prefill": prefill_calls,
            "calls_per_train_step": train_calls, "max_err": err, "tol": tol,
-           "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain,
+           "kernel_ms": ms, "host_issue_ms": issue, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     log(json.dumps(rec))
     del reps, libs, wp, w_lib, got, want
@@ -1390,6 +1459,13 @@ def tick_products(cfg):
             + [(d, cfg.vocab_size, 1, cfg.tie_embeddings)])
 
 
+def x_dtype(torch, cfg, k, n):
+    """The dtype of x in a decode body's product (K, N): f32 for the MoE
+    router (``blocks.route`` widens x), bf16 for every other one."""
+    router = cfg.family == "moe" and (k, n) == (cfg.d_model, cfg.n_experts)
+    return torch.float32 if router else torch.bfloat16
+
+
 def append_case(torch, ops, ref, gen, cfg, seq, lens, calls):
     """The decode tick's KV append (``ops.append_kv_rows``) of bf16 K, V
     rows (slots, Hkv, head_dim) into AF16 dense caches of ``seq`` rows:
@@ -1464,7 +1540,7 @@ def check_family(torch, F, ops, ref, gen, cfg, seq):
     tick."""
     per = {"packed_matmul": [
         matmul_case(torch, ops, ref, gen, cfg.name, k, n, calls, transpose,
-                    torch.bfloat16, 16)
+                    x_dtype(torch, cfg, k, n), 16)
         for k, n, calls, transpose in tick_products(cfg)]}
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     self_layers, cross = cfg.n_kv_layers, cross_layers(cfg)
@@ -1499,6 +1575,91 @@ def check_family(torch, F, ops, ref, gen, cfg, seq):
             k: af12[k] for k in keys}
         out["packed_matmul"]["max_abs_err"] = max(
             out["packed_matmul"]["max_abs_err"], af12["max_err"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: the five zoo configs' decode ticks
+# ---------------------------------------------------------------------------
+
+def zoo_config(get_config, arch):
+    """A zoo config as phase 3g serves it: arctic-480b cut to its
+    ZOO_LAYERS, the others whole."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=ZOO_LAYERS.get(cfg.name,
+                                                             cfg.n_layers))
+
+
+def zoo_paged_cases(cfg):
+    """``check_paged_attention``'s cases for a zoo config: the check case
+    (lengths up to 4,096) and its drain's tick (lengths near phase 3g's,
+    ZOO_MAX_SEQ rows, no shared prefix), at the config's KV width (bf16
+    rows for paper_native) and, for the dense family's packed caches,
+    the drafts' AF12 and AF8 and bf16 rows too (checked; the tick case
+    timed at AF16 and AF12)."""
+    if cfg.compression.kv_bits is None:
+        widths, tick = (0,), (0,)
+    elif cfg.family == "dense":
+        widths, tick = (16, 12, 8, 0), (16, 12)
+    else:
+        widths, tick = (16,), (16,)
+    return [("check", [0, 1, 15, 16, 17, 255, 200, 4096], 4096 // PAGE,
+             [(5, 6, 12)], 0, widths),
+            ("tick", [5, 7, 9, 10, 12, 13, 14, 16], ZOO_MAX_SEQ // PAGE, [],
+             cfg.n_layers, tick)]
+
+
+def check_zoo(torch, F, ops, ref, gen, cfg):
+    """Every kernel of a zoo config's decode tick (phase 3g's drains) at
+    its full-width shapes, bf16 activations, held to its plain version
+    and timed beside its bound and library call: ``check_family``'s rows
+    (every packed product, the KV append, kv_decode, the embedding
+    gather), paged_attention (``zoo_paged_cases``), the expert banks for
+    arctic-480b (E = 128 at its decode capacity), and at the new shapes'
+    other widths: the draft's whole weight pass (phi3-medium-14b AF12,
+    stablelm-12b AF8), kv_decode on AF12 caches (timed) and AF8 and AF32
+    ones (checked) for the dense family (``check_kv_decode``), and the append at every width, dense
+    and paged, for stablelm-12b's 80-word heads (``check_pack``: bit for
+    bit; timed at AF12, its draft cache's width).
+    paper_native serves plain weights and a plain cache: its path's one
+    kernel is paged_attention on bf16 rows."""
+    paged = check_paged_attention(torch, F, ops, ref, gen, cfg,
+                                  zoo_paged_cases(cfg))
+    if cfg.compression.weight_bits is None:
+        return {"paged_attention": paged}
+    out = check_family(torch, F, ops, ref, gen, cfg, ZOO_MAX_SEQ)
+    out["paged_attention"] = paged
+    bf = torch.bfloat16
+    if cfg.family == "moe":
+        from repro_torch.models import blocks as B
+
+        e, d, f, L = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.n_layers
+        cap = B.capacity(cfg, SLOTS)
+        out["packed_matmul_batched"] = tick_summary([
+            batched_case(torch, ops, ref, gen, cfg.name, e, cap, d, f,
+                         2 * L, False, bf),                 # w_in, w_gate
+            batched_case(torch, ops, ref, gen, cfg.name, e, cap, f, d, L,
+                         False, bf)])                       # w_out
+    draft = ZOO_DRAFTS.get(cfg.name)
+    if draft:                        # the draft's pass: a body and its head
+        recs = [matmul_case(torch, ops, ref, gen, cfg.name, k, n, 0,
+                            transpose, x_dtype(torch, cfg, k, n), draft,
+                            draft_calls=calls)
+                for k, n, calls, transpose in tick_products(cfg)]
+        key = f"AF{draft} draft pass"
+        out["packed_matmul"]["per_width"] = {
+            key: width_summary(recs, "draft_calls_per_pass")}
+        out["packed_matmul"]["max_abs_err"] = max(
+            [out["packed_matmul"]["max_abs_err"]]
+            + [r["max_err"] for r in recs])
+        log(f"packed_matmul {cfg.name} {key} (one decode body with its "
+            "head): " + json.dumps(out["packed_matmul"]["per_width"][key]))
+    if cfg.family == "dense":        # AF8, AF32 checked; AF12 timed too
+        out["kv_decode"] = check_kv_decode(torch, F, ops, ref, gen, cfg,
+                                           ZOO_MAX_SEQ)
+    if cfg.resolved_head_dim % 128:  # stablelm-12b's 5 code groups a head
+        out["pack"]["per_width"] = check_pack(torch, ops, ref, gen,
+                                              cfg).get("per_width", {})
     return out
 
 
@@ -1550,7 +1711,7 @@ def check_prefill_shapes(torch, F, ops, ref, gen, qwen, pali, moe):
 # ---------------------------------------------------------------------------
 
 def path_launches(cfg, ticks: int, positions: int, paged: bool = False,
-                  spec_k: int = 0):
+                  spec_k: int = 0, packed: bool = True):
     """Kernel launches of a drain with ``ticks`` decode ticks and
     ``positions`` prefill positions, by the code of the decode body: its
     packed products (``tick_products``), the three expert banks (moe),
@@ -1565,7 +1726,10 @@ def path_launches(cfg, ticks: int, positions: int, paged: bool = False,
     and k+1 verify bodies with k+1 heads, and the draft prefills every
     position the target does. ``packed_matmul_transposed`` counts the
     heads again where the table is tied (its orientation's own count,
-    within packed_matmul's)."""
+    within packed_matmul's). Plain weights (``packed`` False) take no
+    product, bank or gather kernel; a plain KV cache (no ``kv_bits``)
+    is written and, dense, read without a kernel, and read paged through
+    paged_attention on its bf16 rows."""
     products = tick_products(cfg)
     per_body = sum(calls for _, _, calls, _ in products[:-1])
     self_layers, cross = cfg.n_kv_layers, cross_layers(cfg)
@@ -1574,12 +1738,14 @@ def path_launches(cfg, ticks: int, positions: int, paged: bool = False,
         heads = ticks * (2 * spec_k + 1)
     else:
         bodies, heads = ticks + positions, ticks
-    return {"packed_matmul": bodies * per_body + heads,
-            "packed_matmul_transposed": heads if products[-1][3] else 0,
-            "pack": bodies * self_layers,
-            "kv_decode": bodies * ((0 if paged else self_layers) + cross),
-            "take_rows": bodies,
-            "packed_matmul_batched": (bodies * 3 * cfg.n_layers
+    w, kv = int(packed), int(cfg.compression.kv_bits is not None)
+    return {"packed_matmul": w * (bodies * per_body + heads),
+            "packed_matmul_transposed": w * heads if products[-1][3] else 0,
+            "pack": kv * bodies * self_layers,
+            "kv_decode": bodies * ((0 if paged else kv * self_layers)
+                                   + cross),
+            "take_rows": w * bodies,
+            "packed_matmul_batched": (w * bodies * 3 * cfg.n_layers
                                       if cfg.family == "moe" else 0),
             "paged_attention": bodies * self_layers if paged else 0,
             "unpack": 0, "convert": 0, "truncate": 0}
@@ -1622,13 +1788,14 @@ def device_launches(torch, call):
 
 
 def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
-          paged: bool = False, params=None, plan=None, label=""):
+          paged: bool = False, params=None, plan=None, label="",
+          pack: bool = True):
     """Drain ``prompts`` through a full-width engine (on ``params`` when
     given; packed at ``plan``'s per-leaf widths when given, ``label``
-    naming it, else uniformly); returns (launch counts, outputs, engine,
-    the drain's numbers). With a plan, the drain's last decode call is
-    also replayed through the plain versions on the card
-    (``decode_against_plain``)."""
+    naming it, else uniformly unless ``pack`` is False); returns (launch
+    counts, outputs, engine, the drain's numbers). With a plan, the
+    drain's last decode call is also replayed through the plain versions
+    on the card (``decode_against_plain``)."""
     from repro_torch import obs
     from repro_torch.kernels import ops, ref
     from repro_torch.serving import ServeEngine
@@ -1637,7 +1804,7 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     t0 = time.perf_counter()
     tracer = obs.Tracer()
     eng = ServeEngine(cfg, max_seq_len=max_seq, max_slots=SLOTS,
-                      pack_weights=True, tracer=tracer, params=params,
+                      pack_weights=pack, tracer=tracer, params=params,
                       paged=paged, kv_page_size=PAGE, plan=plan)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1679,7 +1846,8 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     prefill = tracer.events("serve.prefill")
     positions = sum(r["attrs"]["chunk"] for r in prefill)
     ticks = stats["decode_calls"]
-    expect = (path_launches(cfg, ticks, positions, paged) if plan is None
+    expect = (path_launches(cfg, ticks, positions, paged, packed=pack)
+              if plan is None
               else plan_path_launches(cfg, plan, ticks, positions))
     res = {"model": cfg.name, "kv": mode, "requests": len(outs),
            "prompt_tokens": sum(len(p) for p in prompts),
@@ -1691,6 +1859,9 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
            "ms_per_decode_tick_min": min(decode_ms),
            "prefill_s": sum(r["dur_s"] for r in prefill),
            "launches": counts, "launches_expected": expect,
+           "launches_per_decode_call": {
+               k: n for k, n in path_launches(cfg, 1, 0, paged,
+                                              packed=pack).items() if n},
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "weight_pass_gb": eng.weight_read_bytes / 1e9}
     if paged:
@@ -1737,10 +1908,12 @@ def serve(torch, cfg, prompts, new_tokens: int, max_seq: int,
     return counts, outs, eng, res
 
 
-def serve_speculative(torch, cfg, prompts, params, paged, plain):
+def serve_speculative(torch, cfg, prompts, params, paged, plain,
+                      max_seq: int = MAX_SEQ, new_tokens: int = NEW_TOKENS):
     """Drain ``prompts`` through the full-width speculative engine on
     ``params`` (the plain dense drain's packed weights): AF16 target,
-    AF12 draft weights and KV, k = SPEC_K, greedy. Its tokens must be
+    the config's draft weights (AF12 unless it names another width) and
+    AF12 draft KV, k = SPEC_K, greedy. Its tokens must be
     the plain drain's (``plain``: its outputs and numbers), the counters
     the path's, and a paged pool must drain to empty. Per tick: the
     tick's time (span ``serve.tick``, the plain drain's yardstick too),
@@ -1749,7 +1922,7 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
     the tick's read of the lengths and the verify call precedes its read
     of the tokens, so the device runs the draft while the host issues
     the verify, as it does without the timing. Returns the launch
-    counts."""
+    counts and the drain's numbers."""
     from repro_torch import obs
     from repro_torch.kernels import ops
     from repro_torch.serving import SpeculativeEngine
@@ -1757,7 +1930,7 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tracer = obs.Tracer()
-    eng = SpeculativeEngine(cfg, max_seq_len=MAX_SEQ, max_slots=SLOTS,
+    eng = SpeculativeEngine(cfg, max_seq_len=max_seq, max_slots=SLOTS,
                             pack_weights=True, tracer=tracer, params=params,
                             paged=paged, kv_page_size=PAGE, k=SPEC_K)
     torch.cuda.synchronize()
@@ -1778,7 +1951,7 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
     stats = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1830,7 +2003,60 @@ def serve_speculative(torch, cfg, prompts, params, paged, plain):
     log(f"{cfg.name} speculative {mode}: tokens identical to the plain dense "
         f"drain's; {res['ms_per_committed_token']:.2f} ms per committed "
         f"token against the plain drain's {plain['ms_per_token']:.2f}")
-    return counts
+    return counts, res
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the five zoo configs
+# ---------------------------------------------------------------------------
+
+def zoo_phase(torch, np, cfg):
+    """Drain a zoo config (``zoo_config``) at full width on 8 requests of
+    ZOO_PROMPTS tokens, ZOO_NEW_TOKENS new tokens each, max_seq_len
+    ZOO_MAX_SEQ, bf16 activations: AF16 weights drawn by the packing
+    engine itself (slice by slice into their packed words) and an AF16
+    KV cache, or, for paper_native, its plain bf16 weights and plain
+    cache (``NO_COMPRESSION``); dense, then paged on the same weights,
+    then, for ZOO_DRAFTS' configs, speculatively with their draft
+    (dense KV). The tokens must be the dense drain's in every mode, each
+    drain's launches its path's (``serve``, ``serve_speculative``), and
+    every drain's peak memory under ZOO_PEAK_GB. Returns the launch
+    counts by drain."""
+    pack = cfg.compression.weight_bits is not None
+    prompts = random_prompts(np, cfg, ZOO_PROMPTS)
+    launches = {}
+    launches[cfg.name], outs, eng, plain = serve(
+        torch, cfg, prompts, ZOO_NEW_TOKENS, ZOO_MAX_SEQ, pack=pack)
+    drains = [plain]
+    launches[cfg.name + " paged"], paged_outs, paged, res = serve(
+        torch, cfg, prompts, ZOO_NEW_TOKENS, ZOO_MAX_SEQ, paged=True,
+        params=eng.params, pack=pack)
+    drains.append(res)
+    del paged
+    if paged_outs != outs:
+        raise AssertionError(f"{cfg.name}: paged greedy tokens differ from "
+                             f"the dense drain's: {paged_outs} != {outs}")
+    if cfg.name in ZOO_DRAFTS:
+        plain["outs"] = outs
+        torch.cuda.empty_cache()
+        launches[cfg.name + " speculative"], res = serve_speculative(
+            torch, cfg, prompts, eng.params, False, plain, ZOO_MAX_SEQ,
+            ZOO_NEW_TOKENS)
+        if res["draft_bits"] != ZOO_DRAFTS[cfg.name]:
+            raise AssertionError(f"{cfg.name}: drafted at AF{res['draft_bits']}"
+                                 f", not AF{ZOO_DRAFTS[cfg.name]}")
+        drains.append(res)
+    del eng
+    torch.cuda.empty_cache()
+    peak = max(r["peak_memory_gb"] for r in drains)
+    if peak >= ZOO_PEAK_GB:
+        raise AssertionError(f"{cfg.name}: peak memory {peak:.2f} GB, not "
+                             f"under {ZOO_PEAK_GB} GB")
+    log(f"zoo: {cfg.name} at {cfg.n_layers} layers, "
+        f"{'AF16' if pack else 'plain bf16'} weights, "
+        f"{len(drains)} drains ({', '.join(launches)}): tokens identical, "
+        f"peak memory {peak:.2f} GB (under {ZOO_PEAK_GB} GB)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3152,7 +3378,8 @@ def parity(torch, np, cfg):
     """PARITY_STEPS decode steps of ``cfg`` cut to 2 layers (the hybrid
     to 4: one group of 2 RG-LRU layers and an attention layer, and one
     tail layer; encdec's encoder to 2) in f32, at full width, on the card
-    against the CPU with the same packed weights: max abs logit error
+    against the CPU with the same weights, packed at the config's width
+    (plain where it packs none: paper_native): max abs logit error
     (tolerance 1e-3, argmax equal). encdec attends a cross cache of
     random values (the engine's is all zeros) over all its rows. Then
     ``prefill`` and ``loss`` of one sequence of PARITY_T tokens (the
@@ -3174,7 +3401,8 @@ def parity(torch, np, cfg):
     lm_g, lm_c = LM(small, device="cuda"), LM(small, device="cpu")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = lm_g.init(gen)
-    params = repack(params, uniform_plan(params, 16))
+    params = repack(params, uniform_plan(params,
+                                         small.compression.weight_bits))
     params_c = tree_to(params, "cpu")
     st_g = lm_g.init_decode_state(SLOTS, 32)
     if small.family == "encdec":
@@ -3691,6 +3919,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s ({lib_path.parent.name}); "
         + build_summary(build_log))
     pali, whisper, rgemma = fams[0], fams[1], fams[3]
+    zoo = [zoo_config(get_config, a) for a in ZOO_ARCHS]
     log("kvd_partial (kv_decode and paged_attention's body): "
         + build_summary(build_log, "kvd_partial") + "; dynamic shared "
         + json.dumps(attend_smem(build, (
@@ -3700,7 +3929,9 @@ def main() -> int:
             ("paligemma_3b check", pali, 4096),
             ("recurrentgemma_9b tick", rgemma, MOE_MAX_SEQ),
             ("whisper_small self", whisper, MOE_MAX_SEQ),
-            ("whisper_small cross", whisper, whisper.encoder_seq)))))
+            ("whisper_small cross", whisper, whisper.encoder_seq),
+            *((f"{z.name} {case}", z, seq) for z in zoo[1:4]
+              for case, seq in (("tick", ZOO_MAX_SEQ), ("check", 4096)))))))
     log("pmm_kernel (packed_matmul's normal orientation): "
         + build_summary(build_log, "pmm_kernel") + "; pmm_t_mma_kernel "
         "(transposed): " + build_summary(build_log, "pmm_t_mma_kernel")
@@ -3709,22 +3940,25 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}                     # model -> kernel -> numbers per tick
     for cfg, seq in ((qwen, MAX_SEQ), (moe, MOE_MAX_SEQ),
-                     *((f, MOE_MAX_SEQ) for f in fams)):
-        if cfg.family in ("dense", "moe"):
+                     *((f, MOE_MAX_SEQ) for f in fams),
+                     *((z, ZOO_MAX_SEQ) for z in zoo)):
+        if cfg in zoo:
+            r = check_zoo(torch, F, ops, ref, gen, cfg)
+        elif cfg.family in ("dense", "moe"):
             r = {"packed_matmul": check_packed_matmul(torch, ops, ref, gen,
                                                       cfg),
                  "pack": check_pack(torch, ops, ref, gen, cfg),
                  "kv_decode": check_kv_decode(torch, F, ops, ref, gen, cfg,
                                               seq),
                  "take_rows": check_take_rows(torch, F, ops, ref, gen, cfg)}
+            if cfg.family == "moe":
+                r["packed_matmul_batched"] = check_packed_matmul_batched(
+                    torch, ops, ref, gen, cfg)
+            else:
+                r["paged_attention"] = check_paged_attention(
+                    torch, F, ops, ref, gen, cfg)
         else:
             r = check_family(torch, F, ops, ref, gen, cfg, seq)
-        if cfg.family == "moe":
-            r["packed_matmul_batched"] = check_packed_matmul_batched(
-                torch, ops, ref, gen, cfg)
-        elif cfg.family == "dense":
-            r["paged_attention"] = check_paged_attention(torch, F, ops, ref,
-                                                         gen, cfg)
         results[cfg.name] = r
         log(f"{cfg.name}: kernel device time per decode tick "
             f"{sum(k['ms'] for k in r.values()):.3f} ms, bound "
@@ -3753,8 +3987,8 @@ def main() -> int:
     plain["outs"] = dense_outs
     for spec_paged in (False, True):
         name = f"{qwen.name} speculative" + (" paged" if spec_paged else "")
-        launches[name] = serve_speculative(torch, qwen, prompts, dense.params,
-                                           spec_paged, plain)
+        launches[name], _ = serve_speculative(torch, qwen, prompts,
+                                              dense.params, spec_paged, plain)
         torch.cuda.empty_cache()
     prefill_runs = {}                # model -> (launches, kernel numbers)
     prefill_runs[qwen.name] = prefill_phase(torch, ops, qwen, dense.lm,
@@ -3794,6 +4028,10 @@ def main() -> int:
     for name, (counts, _) in prefill_runs.items():
         launches[name + " prefill+loss"] = counts
     log(f"served and prefilled ({time.perf_counter() - t_start:.0f} s so far)")
+    for cfg in zoo:
+        launches.update(zoo_phase(torch, np, cfg))
+    log(f"served the zoo configs ({time.perf_counter() - t_start:.0f} s so "
+        "far)")
     train_runs = {}                  # model -> (launches, numbers) by mode
     for cfg in (qwen, moe, whisper):
         train_runs[cfg.name] = train_phase(torch, ops, cfg)
@@ -3809,8 +4047,9 @@ def main() -> int:
     log(f"ran the kernel flow ({time.perf_counter() - t_start:.0f} s so far)")
     launches.update(lint_phase(torch, ops, qwen, moe)["launches"])
     log(f"linted ({time.perf_counter() - t_start:.0f} s so far)")
-    for cfg in (qwen, moe, *fams):
-        parity(torch, np, cfg)
+    for cfg in (qwen, moe, *fams, *zoo):
+        parity(torch, np, cfg if cfg.family != "moe" or cfg is moe else
+               dataclasses.replace(cfg, n_experts=ZOO_PARITY_EXPERTS))
     for cfg in (qwen, moe, whisper):
         train_parity(torch, np, cfg)
     paged_parity(torch, np, qwen)

@@ -36,8 +36,9 @@ from repro_torch.core.precision_tuning import (QuantizedKernel, tune_kernel,
                                                tune_tensors)
 from repro_torch.core.quality import QualitySpec
 from repro_torch.core.range_analysis import TOP, Interval, RangeAnalysis
-from repro_torch.core.tensor_store import (is_packed, pack_tensor,
-                                           repack_tensor, tree_map_with_path)
+from repro_torch.core.tensor_store import (Draw, is_draw, is_packed,
+                                           pack_tensor, repack_tensor,
+                                           tree_map_with_path)
 
 
 # ---------------------------------------------------------------------------
@@ -325,8 +326,8 @@ def uniform_plan(tree: Any, bits: int, min_ndim: int = 2) -> CompressionPlan:
         if is_packed(leaf):
             if leaf.kind == "float":
                 float_bits[path_str(path)] = bits
-        elif (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
-              and leaf.ndim >= min_ndim):
+        elif (isinstance(leaf, (torch.Tensor, Draw))
+              and leaf.is_floating_point() and leaf.ndim >= min_ndim):
             float_bits[path_str(path)] = bits
         return leaf
 
@@ -358,7 +359,10 @@ def repack(tree: Any, plan: CompressionPlan) -> Any:
     weights and as much packed). A tuple comes back rebuilt. A packed
     leaf re-encodes value by value (the same object at an unchanged
     width), a plain leaf the plan names is packed, the rest pass
-    through. Returns the tree."""
+    through. A ``Draw`` leaf is drawn here: one the plan packs, a slice
+    at a time straight into its packed words (``Draw.draw_packed``: the
+    peak is the packed tree plus one slice), any other whole. Returns
+    the tree."""
 
     def visit(node, path):
         if isinstance(node, (dict, list)):
@@ -370,9 +374,12 @@ def repack(tree: Any, plan: CompressionPlan) -> Any:
             return type(node)(visit(v, path + (i,))
                               for i, v in enumerate(node))
         spec = plan.bits_of(path, node)
+        bits, signed = spec if isinstance(spec, tuple) else (spec, True)
+        if is_draw(node):
+            return (node.draw_packed(bits) if bits is not None and bits < 32
+                    else node.draw())
         if spec is None:
             return node
-        bits, signed = spec if isinstance(spec, tuple) else (spec, True)
         if is_packed(node):
             return repack_tensor(node, bits)
         if bits is None or bits >= 32:

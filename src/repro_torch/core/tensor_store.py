@@ -3,14 +3,16 @@
 Port of ``repro.core.tensor_store``. A ``PackedTensor`` holds a logical
 float or integer tensor packed along its last axis at a fixed width, its
 words in an int32 tensor. An ``STWeight`` pairs one with its dense
-master for packed-master training. Parameter trees are nested dicts (and
-lists or tuples) whose leaves are tensors, ``PackedTensor``s or
-``STWeight``s; the small tree helpers here take the place of JAX's
-pytree utilities and treat each of those as one leaf.
+master for packed-master training; a ``Draw`` is a random leaf not
+drawn yet. Parameter trees are nested dicts (and lists or tuples) whose
+leaves are tensors, ``PackedTensor``s, ``STWeight``s or ``Draw``s; the
+small tree helpers here take the place of JAX's pytree utilities and
+treat each of those as one leaf.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -139,6 +141,53 @@ def pack_tensor(x: torch.Tensor, bits: int, kind: Optional[str] = None,
         data = bitpack.pack_groups(encode_int(x, bits, signed), bits)
     return PackedTensor(data=data, bits=bits, kind=kind, signed=signed,
                         logical_shape=tuple(x.shape), out_dtype=out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """A normal leaf not drawn yet (``models.layers.init_dense``):
+    N(0, scale^2) values of ``shape`` from ``gen``, drawn in float32 and
+    cast to ``dtype``. ``draw`` makes it whole (``LM.init``);
+    ``draw_packed`` makes it one slice of its last two axes at a time (a
+    stacked leaf's layer, a bank's expert of a layer), each packed
+    straight into the leaf's words, so the dense leaf never exists
+    (``core.compress.repack`` of ``LM.init_lazy``'s tree). The two
+    consume the generator differently: the same distribution, not the
+    same numbers."""
+
+    gen: torch.Generator
+    shape: Tuple[int, ...]
+    scale: float
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def is_floating_point(self) -> bool:
+        return self.dtype.is_floating_point
+
+    def draw(self) -> torch.Tensor:
+        w = torch.randn(self.shape, generator=self.gen,
+                        device=self.gen.device, dtype=torch.float32)
+        return w.mul_(self.scale).to(self.dtype)
+
+    def draw_packed(self, bits: int) -> PackedTensor:
+        if self.ndim < 3:
+            return pack_tensor(self.draw(), bits)
+        part = dataclasses.replace(self, shape=self.shape[-2:])
+        words = torch.empty(
+            self.shape[:-1] + (bitpack.packed_group_words(self.shape[-1],
+                                                          bits),),
+            dtype=torch.int32, device=self.gen.device)
+        for idx in itertools.product(*map(range, self.shape[:-2])):
+            words[idx] = pack_tensor(part.draw(), bits).data
+        return PackedTensor(words, bits, "float", True, tuple(self.shape),
+                            self.dtype)
+
+
+def is_draw(x) -> bool:
+    return isinstance(x, Draw)
 
 
 REPACK_CHUNK = 1 << 24   # codes decoded at a time by ``repack_tensor``

@@ -5,7 +5,8 @@ Port of ``repro.models.blocks``: attention (causal, windowed or cross),
 MLP, MoE, Mamba-1 and RG-LRU. ``init_*`` returns the parameters of every
 layer stacked on leading axes ``n`` (an int, or a tuple for the hybrid
 family's (groups, per group) stacks; the reference stacks per-layer
-inits with ``vmap``); ``*_apply`` (over a sequence (B, S, d): prefill
+inits with ``vmap``), each random leaf a ``Draw`` that ``LM.init`` or a
+packing engine draws; ``*_apply`` (over a sequence (B, S, d): prefill
 and the loss) and ``*_decode`` (one token) take one layer's slice, and
 ``mlp_apply`` / ``moe_apply`` serve both. The recurrences of
 ``mamba_apply`` and ``rglru_apply`` are loops over S in f32, and

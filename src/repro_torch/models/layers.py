@@ -49,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.formats import FLOAT_FORMATS
-from repro_torch.core.tensor_store import (PackedTensor, STWeight, is_packed,
-                                           is_st)
+from repro_torch.core.tensor_store import (Draw, PackedTensor, STWeight,
+                                           is_packed, is_st)
 from repro_torch.kernels import ops as kops
 
 
@@ -385,11 +385,10 @@ def unembed(x: torch.Tensor, table_or_head, tied: bool) -> torch.Tensor:
 
 
 def init_dense(gen: torch.Generator, shape, scale=None,
-               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Normal weights scaled by 1/sqrt(fan_in), drawn on the generator's
-    device in float32 and cast."""
+               dtype: torch.dtype = torch.bfloat16) -> Draw:
+    """Normal weights scaled by 1/sqrt(fan_in), to be drawn on the
+    generator's device in float32 and cast (a ``Draw``: ``LM.init`` draws
+    it whole, a packing engine slice by slice into its packed words)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return w.mul_(s).to(dtype)
+    return Draw(gen, tuple(shape), s, dtype)

@@ -66,8 +66,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.core.tensor_store import (is_packed, is_st, tree_leaves,
-                                           tree_map_with_path)
+from repro_torch.core.tensor_store import (is_draw, is_packed, is_st,
+                                           tree_leaves, tree_map_with_path)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -163,6 +163,16 @@ class LM:
         The reference draws from JAX's PRNG, which torch cannot
         reproduce: parity runs pass the reference's parameters in
         (``interop.params_from_numpy``)."""
+        return tree_map_with_path(
+            lambda _, leaf: leaf.draw() if is_draw(leaf) else leaf,
+            self.init_lazy(gen))
+
+    def init_lazy(self, gen: Optional[torch.Generator] = None) -> Dict:
+        """``init``'s tree with every normal leaf a ``Draw`` not drawn
+        yet: ``init`` draws them whole in the tree's order;
+        ``core.compress.repack`` draws those its plan packs one slice at
+        a time straight into their packed words (a packing
+        ``ServeEngine``), so the dense tree never exists."""
         cfg = self.cfg
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)

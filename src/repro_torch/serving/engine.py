@@ -23,7 +23,11 @@ Port of the dense-KV and paged-KV modes of
 width (``uniform_plan`` + ``repack``); on the card the packing itself
 runs through the ``pack`` kernel. ``params=`` serves given parameters
 (parity runs pass the reference's, converted by ``interop``); otherwise
-they come from ``LM.init`` with seed 0.
+they are drawn with seed 0: by ``LM.init`` when the engine does not
+pack, else leaf by leaf inside ``repack`` from ``LM.init_lazy``'s tree,
+each slice of a stacked leaf (a layer, a bank's expert of a layer)
+packed as soon as it is drawn, so the peak is the packed tree plus one
+slice. Those draws follow ``LM.init``'s distribution, not its numbers.
 
 ``paged=True`` swaps the per-slot dense KV regions for a pool of
 ``kv_page_size``-row pages shared by all slots (``core.allocator.
@@ -179,16 +183,20 @@ class ServeEngine:
             raise NotImplementedError(
                 "paged_attn=False (the gather route) runs on the CPU only; "
                 "on the card paged KV mode attends through the page table")
+        packs = self.pack_weights or self.plan is not None
         if self.params is None:
-            self.params = self.lm.init()
+            # a packing engine draws its own weights inside ``repack``,
+            # each leaf a slice at a time into its packed words: the dense
+            # tree never exists (granite-34b's is 68 GB of bf16)
+            self.params = self.lm.init_lazy() if packs else self.lm.init()
         else:
             self.params = tree_to(self.params, self.device)
         self.weight_plan = None
-        if self.pack_weights or self.plan is not None:
+        if packs:
             self.weight_plan = self.plan or uniform_plan(
                 self.params, self.cfg.resolved_weight_bits)
-            # in place, leaf by leaf: the engine owns this tree (LM.init's,
-            # or tree_to's copy of the caller's)
+            # in place, leaf by leaf: the engine owns this tree (its own
+            # draws, or tree_to's copy of the caller's)
             self.params = repack(self.params, self.weight_plan)
         self._pass_bytes = weight_pass_bytes(self.params)
         self._kv_bytes_per_row = self.cfg.kv_bytes_per_token()

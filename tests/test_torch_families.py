@@ -67,35 +67,45 @@ def drain(eng, prompts):
     return [eng.result(r) for r in rids], stats
 
 
+# served at their own size: paper_native is a CPU-sized stand-in already
+# (2 layers, d_model 256)
+OWN_SIZE = ("paper_native",)
+
+
 def configs(arch, **overrides):
-    """(port, reference) reduced configs of ``arch``, with ``overrides``."""
-    return tuple(dataclasses.replace(get(arch).reduced(), **overrides)
-                 for get in (get_config, ref_get_config))
+    """(port, reference) reduced configs of ``arch`` (``OWN_SIZE`` ones
+    as published), with ``overrides``."""
+    return tuple(dataclasses.replace(
+        get(arch) if arch in OWN_SIZE else get(arch).reduced(), **overrides)
+        for get in (get_config, ref_get_config))
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(arch, lens, overrides):
+def _reference_run(arch, lens, overrides, engine_kw):
     _, cfg = configs(arch, **dict(overrides))
     with mock.patch.object(ref_engine_module, "repack", _jitted_repack):
-        eng = RefEngine(cfg, sample_seed=0, **ENGINE_KW)
+        eng = RefEngine(cfg, sample_seed=0, **dict(ENGINE_KW, **dict(
+            engine_kw)))
     outs, stats = drain(eng, make_prompts(lens))
     assert all(o is not None and len(o) == NEW for o in outs)
     return {"arch": arch, "overrides": dict(overrides), "engine": eng,
-            "outs": outs, "stats": stats, "params": _numpy_tree(eng.params),
-            "lens": lens}
+            "engine_kw": dict(engine_kw), "outs": outs, "stats": stats,
+            "params": _numpy_tree(eng.params), "lens": lens}
 
 
-def reference_run(arch, lens=PROMPT_LENS, **overrides):
+def reference_run(arch, lens=PROMPT_LENS, engine_kw=(), **overrides):
     """The reference engine built and drained once per process and
-    arguments: its engine, outputs, stats and packed parameters in
-    interop's numpy form."""
-    return _reference_run(arch, tuple(lens), tuple(sorted(overrides.items())))
+    arguments (``engine_kw``: (name, value) pairs over ``ENGINE_KW``):
+    its engine, outputs, stats and packed parameters in interop's numpy
+    form."""
+    return _reference_run(arch, tuple(lens), tuple(sorted(overrides.items())),
+                          tuple(engine_kw))
 
 
 def port_engine(run, cls=ServeEngine, **kw):
     cfg, _ = configs(run["arch"], **run["overrides"])
     return cls(cfg, params=params_from_numpy(run["params"], device="cpu"),
-               device="cpu", **dict(ENGINE_KW, **kw))
+               device="cpu", **dict(ENGINE_KW, **run["engine_kw"], **kw))
 
 
 def port_run(run, cls=ServeEngine, **kw):
@@ -133,8 +143,8 @@ def reference_rows(ref_kv):
     over its own, so that a code the two sides round apart (their f32
     sums run in another order) is not read by the rest of the call.
     Yields the list of (own words, reference words) per layer, K and
-    V."""
-    want = {n: torch.from_numpy(np.array(ref_kv[n]).view(np.int32))
+    V (a plain cache's rows as they are)."""
+    want = {n: tensor_from_numpy(np.array(ref_kv[n]), torch.device("cpu"))
             for n in ("k", "v")}
     append, rows = B.update_kv_cache, []
 
@@ -156,7 +166,12 @@ def reference_rows(ref_kv):
 def check_rows(rows, d, bits=16):
     """Appended rows of the two sides decode within one code step, or
     within 2^-16 (the f32 projections' summation order, for a value that
-    cancellation left small)."""
+    cancellation left small); plain rows (``bits`` None) within 1e-5."""
+    if bits is None:
+        for own, theirs in rows:
+            np.testing.assert_allclose(own.numpy(), theirs.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+        return
     step = 2.0 ** -{16: 10, 12: 7}[bits]
     for own, theirs in rows:
         np.testing.assert_allclose(kref.unpack_ref(own, bits, d).numpy(),
@@ -192,14 +207,15 @@ def decode_steps(run, steps, setup=None, seed=5):
         with reference_rows(ref_kv) as rows:
             logits, state = lm.decode_step(params, state,
                                            torch.from_numpy(toks))
-        check_rows(rows, cfg.resolved_head_dim)
+        check_rows(rows, cfg.resolved_head_dim, cfg.compression.kv_bits)
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
                                    rtol=0, atol=LOGIT_TOL)
         if "kv" in state:
             for name in ("k", "v"):
                 np.testing.assert_array_equal(
-                    state["kv"][name].numpy().view(np.uint32),
-                    np.asarray(ref_kv[name]))
+                    state["kv"][name].numpy(),
+                    tensor_from_numpy(np.array(ref_kv[name]),
+                                      torch.device("cpu")).numpy())
     np.testing.assert_array_equal(state["len"].numpy(),
                                   np.asarray(ref_state["len"]))
     return ref_state, state

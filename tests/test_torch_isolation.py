@@ -64,6 +64,26 @@ def test_entry_points_raise_without_a_card():
         lint.main(["--arch", "qwen3_8b"])
 
 
+@pytest.mark.parametrize("arch", ["phi3_medium_14b", "stablelm_12b",
+                                  "granite_34b", "arctic_480b",
+                                  "paper_native"])
+def test_zoo_configs_raise_without_a_card(arch):
+    """The five zoo configs' entry points, at full width, refuse the CPU
+    unless asked, before any weight is drawn: the launcher, and the
+    engine with and without the packed init."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeEngine
+    cfg = get_config(arch)
+    for pack in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServeEngine(cfg, pack_weights=pack)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", arch, "--pack-weights"])
+
+
 def test_cpu_serving_when_asked():
     """The launcher drains on the CPU when asked to (plain versions)."""
     from repro_torch.launch import serve
